@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line:
+Phases, each printed as JSON lines:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions; exits 1 without a GPU.
-2. build: compiles the CUDA kernels from ``object_detectors_tpu_torch/csrc``
-   with nvcc.
+2. build: compiles the three CUDA kernels from
+   ``object_detectors_tpu_torch/csrc`` with nvcc, one process per source, all
+   at once; each one timed.
 3. kernel: holds the normalize kernel bitwise equal to its plain PyTorch
    version at 64x640x640x3, at ragged shapes and at a base offset by one byte.
 4. e2e: full-width YOLOv3 (Darknet-53, 80 classes, 640², bf16, seeded random
@@ -20,6 +21,22 @@ Phases, each printed as one JSON line:
 5. consistency: two images through the port in f32 on the GPU (TF32 off) and
    on the CPU; raw outputs must agree within the stated tolerance, and
    ``nms_majority`` must give identical results on both devices.
+6. kernel (roi_align, nms): the RoIAlign kernel against its plain version at
+   the Faster R-CNN shape and at ragged ones (tolerances at ROI_*), the NMS
+   kernel equal to its plain version on clustered candidates at both of the
+   path's call shapes, with exact score ties and with every box dead.
+7. frcnn_e2e: full-width Faster R-CNN R50-FPN (91 classes, 640², bf16,
+   seeded random weights) through ``build_frcnn_pipeline_uint8`` at batch 16
+   on three distinct pre-staged uint8 batches: 2 warm-up calls, 8 timed
+   calls, one final sync; every kernel's launch count is set to 0 before the
+   timed calls and read after. Then the stage times (CUDA events) and each
+   new kernel alone at the path's own inputs, beside its bound and its plain
+   version.
+8. frcnn_consistency: one image in f32 (TF32 off) on the GPU and on the CPU:
+   FPN maps and RPN outputs within the stated tolerance; the RoIAlign kernel
+   against the plain version on the CPU for the same proposals; the NMS
+   kernel identical to the plain version on the CPU on the RPN's real
+   per-level candidates.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -36,9 +53,17 @@ import numpy as np
 import torch
 
 BATCH, IMG, NUM_CLASSES = 64, 640, 80
+FRCNN_BATCH, FRCNN_CLASSES = 16, 91
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores, published
 RAW_RTOL = RAW_ATOL = 1e-3      # f32 GPU vs CPU raw maps (see phase 5)
+# RoIAlign kernel vs plain: in f32 the same sample positions and weights
+# (no FMA contraction on either side) summed in another order; in bf16 one
+# rounding of that f32 result, so one bf16 ulp (2^-7 relative) on top.
+ROI_F32_RTOL, ROI_F32_ATOL = 1e-4, 1e-5
+ROI_BF16_RTOL, ROI_BF16_ATOL = 2 ** -7, 1e-5
+FEAT_RTOL = FEAT_ATOL = 1e-3    # f32 GPU vs CPU FPN maps and RPN outputs (phase 8)
+IOU_OPS = 13                    # f32 operations of one IoU and its compare
 
 
 def emit(**fields):
@@ -130,15 +155,13 @@ def phase_e2e(P, PL):
     ms = cuda_ms(lambda: P.preprocess_images_cuda(u8), 20)
     plain_ms = cuda_ms(lambda: P.preprocess_images_reference(u8), 20)
     n = u8.numel()
-    moved = n * 1 + n * 2  # uint8 in, bf16 out
-    # the larger of the byte time and the op time (3 f32 ops per element)
-    bound = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "operations": 3 * n / F32_OPS_PER_S * 1e3}
-    bound_by = max(bound, key=bound.get)
+    moved = n * 1 + n * 2  # uint8 in, bf16 out; 3 f32 ops per byte never bind
+    bound = moved / HBM_BYTES_PER_S * 1e3
     emit(phase="kernel_time", name="preprocess", shape=list(u8.shape), ms=ms,
-         plain_ms=plain_ms, bound_ms=bound[bound_by], bound_by=bound_by, bytes=moved,
+         plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", bytes=moved,
          achieved_tb_per_s=moved / (ms * 1e-3) / 1e12)
-    return batches, dict(launches=launches, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound[bound_by], bound_by=bound_by)
+    return batches, dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes")
 
 
 def clustered_candidates(seed: int, batch: int, n: int):
@@ -196,6 +219,258 @@ def phase_consistency(PL, N, u8):
           "fixed point and scan disagree on the GPU")
 
 
+def time_bound(moved: float, ops: float):
+    """The least time for the work, in ms, and which of bytes or operations
+    sets it."""
+    t = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "operations": ops / F32_OPS_PER_S * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def level_maps(seed: int, batch: int, channels: int, dtype, size: int = IMG):
+    """Seeded P2-P5 maps [B, C, H, W] in channels_last memory."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(batch, size // s, size // s, channels, generator=g, device="cuda")
+            .permute(0, 3, 1, 2).to(dtype) for s in (4, 8, 16, 32)]
+
+
+def random_rois(seed: int, batch: int, n: int, size: int = IMG) -> torch.Tensor:
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(batch, n, 2) * (size - 30)
+    wh = rng.rand(batch, n, 2) * ((rng.rand(batch, n, 1) > 0.5) * size / 2 + 8)
+    return torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).cuda()
+
+
+def check_roi_align(KR, case, maps, boxes, size=IMG, out_size=(7, 7)) -> float:
+    """Kernel vs plain version (and, in bf16, vs the f32 kernel) on one input."""
+    got = KR.multiscale_roi_align_cuda(maps, boxes, (size, size), out_size)
+    ref = KR.multiscale_roi_align_reference(maps, boxes, (size, size), out_size)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    f32 = maps[0].dtype == torch.float32
+    ulp_ok = True
+    if not f32:  # one rounding of the f32 kernel's result
+        ref32 = KR.multiscale_roi_align_cuda([m.float() for m in maps], boxes, (size, size),
+                                             out_size)
+        ulp = (ref32.abs().clamp(min=1e-30).log2().floor() - 7).exp2()
+        ulp_ok = bool(((got.float() - ref32).abs() <= ulp).all())
+    emit(phase="kernel", name="roi_align", case=case, dtype=str(maps[0].dtype),
+         out_shape=list(got.shape), max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
+         within_one_ulp_of_f32_kernel=ulp_ok)
+    rtol, atol = (ROI_F32_RTOL, ROI_F32_ATOL) if f32 else (ROI_BF16_RTOL, ROI_BF16_ATOL)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+    check(ulp_ok, f"bf16 RoIAlign kernel is not within one ulp of the f32 kernel ({case})")
+    return err
+
+
+def phase_roi_align_kernel(KR) -> float:
+    worst = 0.0
+    boxes = random_rois(0, FRCNN_BATCH, 1000)
+    ragged = random_rois(1, 2, 40)
+    ragged[0, :6] = torch.tensor([[-50, -40, 30, 20], [0, 0, IMG, 6], [3, 0, 9, IMG],
+                                  [20, 20, 20, 20], [40, 40, 30, 30],
+                                  [IMG - 2, IMG - 2, IMG + 90, IMG + 60]], device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        maps = level_maps(0, FRCNN_BATCH, 256, dtype)
+        worst = max(worst, check_roi_align(KR, "Faster R-CNN shape", maps, boxes))
+        maps = [m[:2] for m in maps]
+        worst = max(worst, check_roi_align(KR, "outside, extreme aspects, degenerate", maps,
+                                           ragged))
+        worst = max(worst, check_roi_align(KR, "14x14", maps, ragged[:, :12].contiguous(),
+                                           out_size=(14, 14)))
+        worst = max(worst, check_roi_align(KR, "N=1", maps, ragged[:, :1].contiguous()))
+        worst = max(worst, check_roi_align(KR, "C=3 (one channel a thread)",
+                                           level_maps(2, 2, 3, dtype, 128),
+                                           random_rois(2, 2, 9, 128), size=128))
+    return worst
+
+
+def check_nms(KN, case, boxes, scores, thr, k, valid=None) -> int:
+    keep, ok = KN.greedy_nms_cuda(boxes, scores, thr, k, valid)
+    ref_keep, ref_ok = KN.greedy_nms_reference(boxes, scores, thr, k, valid)
+    identical = torch.equal(keep, ref_keep) and torch.equal(ok, ref_ok)
+    kept = int(ok.sum())
+    emit(phase="kernel", name="nms", case=case, groups=scores.shape[0], n=scores.shape[1],
+         k=k, iou_threshold=thr, identical=identical, kept=kept)
+    check(identical, f"NMS kernel differs from its plain version ({case})")
+    return kept
+
+
+def phase_nms_kernel(KN):
+    for case, seed, groups, k, thr in (("RPN shape", 3, FRCNN_BATCH * 5, 1000, 0.7),
+                                       ("postprocess shape", 4, FRCNN_BATCH, 100, 0.5)):
+        boxes, scores, _ = [t.cuda() for t in clustered_candidates(seed, groups, 1000)]
+        valid = scores > 0.3
+        kept = check_nms(KN, case + ", clustered, masked", boxes, scores, thr, k, valid)
+        check(0 < kept < int(valid.sum()), f"{case}: NMS kept nothing or dropped nothing")
+        check_nms(KN, case + ", all scores tied", boxes, torch.full_like(scores, 0.5), thr, k)
+        dead = check_nms(KN, case + ", all dead", boxes, torch.full_like(scores, float("-inf")),
+                         thr, k)
+        dead += check_nms(KN, case + ", all invalid", boxes, scores, thr, k,
+                          torch.zeros_like(valid))
+        check(dead == 0, f"{case}: NMS kept a dead box")
+
+
+def greedy_iou_count(boxes, scores, keep, ok, thr) -> int:
+    """The IoUs the greedy kept set needs at least: each kept box against
+    the kept boxes before it, each suppressed box against the kept boxes up
+    to its first suppressor."""
+    from object_detectors_tpu_torch.ops.boxes import pairwise_iou
+    from object_detectors_tpu_torch.ops.nms import gather_rows
+
+    kept_boxes = gather_rows(boxes, keep.clamp(min=0).long())
+    over = (pairwise_iou(kept_boxes, boxes) > thr) & ok[..., None]  # [G, K, N]
+    n = scores.shape[1]
+    kept = torch.zeros((scores.shape[0], n + 1), dtype=torch.bool, device=scores.device)
+    kept = kept.scatter_(1, torch.where(ok, keep, n).long(), True)[:, :n]  # pads: column n
+    suppressed = (scores > float("-inf")) & ~kept & over.any(1)
+    first = over.to(torch.int32).argmax(1)
+    n_kept = ok.sum(1)
+    return int(((first + 1) * suppressed).sum()) + int((n_kept * (n_kept - 1) // 2).sum())
+
+
+def phase_frcnn_e2e(PL, P, KR, KN, RPN):
+    pipe = PL.build_frcnn_pipeline_uint8(num_classes=FRCNN_CLASSES, img_size=IMG,
+                                         device="cuda")
+    rng = np.random.RandomState(2)
+    batches = [torch.from_numpy(rng.randint(0, 255, (FRCNN_BATCH, IMG, IMG, 3),
+                                            dtype=np.uint8)).cuda() for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        out = pipe(batches[i % 3])
+    float(out[1].sum())  # host read
+    iters = 8
+    P.launches = KR.launches = KN.launches = 0
+    t0 = time.perf_counter()
+    outs = [pipe(batches[i % 3]) for i in range(iters)]
+    float(outs[-1][1].sum())  # one final sync
+    dt = (time.perf_counter() - t0) / iters
+    launches = {"preprocess": P.launches, "roi_align": KR.launches, "nms": KN.launches}
+
+    boxes, scores, labels, valid = outs[-1]
+    check(tuple(boxes.shape) == (FRCNN_BATCH, 100, 4) and tuple(valid.shape) == (FRCNN_BATCH, 100),
+          "frcnn e2e output shape")
+    check(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()),
+          "frcnn e2e output is not finite")
+    for name, least in (("preprocess", 1), ("roi_align", 1), ("nms", 2)):
+        check(launches[name] >= least * iters,
+              f"the Faster R-CNN run launched the {name} kernel {launches[name]} times "
+              f"in {iters} calls")
+    emit(phase="frcnn_e2e", batch=FRCNN_BATCH, img=IMG, num_classes=FRCNN_CLASSES,
+         imgs_per_s=FRCNN_BATCH / dt, ms_per_batch=dt * 1e3,
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         valid_detections=int(valid.sum()), launches=launches,
+         launches_per_call={k: v / iters for k, v in launches.items()})
+
+    from object_detectors_tpu_torch.analysis.frcnn_stages import stage_times
+
+    stages = stage_times(pipe, batches, 5)
+    emit(phase="frcnn_stages", batch=FRCNN_BATCH, ms=stages, stage_sum_ms=sum(stages.values()))
+
+    # the kernels alone, at the path's own inputs
+    m = pipe.model
+    rpn = m.cfg.rpn
+    with torch.inference_mode():
+        x = P.preprocess_images(batches[0], torch.bfloat16).permute(0, 3, 1, 2)
+        feats = m.backbone(x)
+        obj, deltas, sizes = m.rpn_head(feats)
+        props = m.decode(feats, deltas, (IMG, IMG))
+        cand_boxes, cand_scores = RPN.level_candidates(props, obj.float(), sizes, (IMG, IMG), rpn)
+        rois, _, roi_valid = RPN.filter_proposals(props, obj.float(), sizes, (IMG, IMG), rpn)
+    maps = list(feats[:4])
+    roi_err = check_roi_align(KR, "Faster R-CNN path inputs", maps, rois)
+    pooled = KR.multiscale_roi_align_cuda(maps, rois, (IMG, IMG))
+    ms = cuda_ms(lambda: KR.multiscale_roi_align_cuda(maps, rois, (IMG, IMG)), 20)
+    plain_ms = cuda_ms(lambda: KR.multiscale_roi_align_reference(maps, rois, (IMG, IMG)), 3)
+    moved = (pooled.numel() * pooled.element_size()
+             + sum(f.numel() * f.element_size() for f in maps) + rois.numel() * 4
+             + rois.numel())  # boxes f32 and levels int32 read once
+    ops = pooled.numel() * (8 * 2 * 2 + 1)  # 4 multiply-adds a sample, 4 samples, 1 divide
+    bound, bound_by = time_bound(moved, ops)
+    roi = dict(launches=launches["roi_align"], max_abs_err=roi_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by)
+    emit(phase="kernel_time", name="roi_align", out_shape=list(pooled.shape),
+         valid_proposals=int(roi_valid.sum()), bytes=moved, operations=ops,
+         launches_per_batch=launches["roi_align"] / iters, library_ms=None,
+         achieved_tb_per_s=moved / (ms * 1e-3) / 1e12,
+         **{k: v for k, v in roi.items() if k not in ("launches", "max_abs_err")})
+
+    n = rpn.pre_nms_top_n_test
+    nb, ns = cand_boxes.reshape(-1, n, 4), cand_scores.reshape(-1, n)
+    keep, ok = KN.greedy_nms_cuda(nb, ns, rpn.nms_thresh, n)
+    check_nms(KN, "RPN path candidates", nb, ns, rpn.nms_thresh, n)
+    timings = {}
+    for case, (b, s, thr, k) in {
+            "RPN path candidates": (nb, ns, rpn.nms_thresh, n),
+            "postprocess shape, clustered": (
+                *[t.cuda() for t in clustered_candidates(4, FRCNN_BATCH, 1000)[:2]], 0.5, 100),
+    }.items():
+        keep, ok = KN.greedy_nms_cuda(b, s, thr, k)
+        ms = cuda_ms(lambda: KN.greedy_nms_cuda(b, s, thr, k), 20)
+        plain_ms = cuda_ms(lambda: KN.greedy_nms_reference(b, s, thr, k), 2)
+        moved = b.numel() * 4 + s.numel() * 4 + keep.numel() * 4 + ok.numel()
+        ious = greedy_iou_count(b, s, keep, ok, thr)
+        bound, bound_by = time_bound(moved, ious * IOU_OPS)
+        timings[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        emit(phase="kernel_time", name="nms", case=case, groups=s.shape[0], n=s.shape[1], k=k,
+             kept=int(ok.sum()), bytes=moved, ious=ious, operations=ious * IOU_OPS,
+             launches_per_batch=launches["nms"] / iters, library_ms=None, **timings[case])
+    nms = dict(launches=launches["nms"], max_abs_err=0.0, **timings["RPN path candidates"])
+    return batches, launches, roi, nms
+
+
+def phase_frcnn_consistency(PL, P, KR, KN, RPN, u8):
+    allow = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = dict(num_classes=FRCNN_CLASSES, img_size=IMG, dtype=torch.float32)
+        models = {dev: PL.build_frcnn_pipeline_uint8(device=dev, **kw).model
+                  for dev in ("cuda", "cpu")}
+        outs = {}
+        with torch.inference_mode():
+            for dev, m in models.items():
+                x = P.preprocess_images(u8.to(dev), torch.float32).permute(0, 3, 1, 2)
+                feats = m.backbone(x)
+                outs[dev] = (feats, *m.rpn_head(feats))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    (feats_g, obj_g, deltas_g, _), (feats_c, obj_c, deltas_c, sizes) = outs["cuda"], outs["cpu"]
+    # f32 on both, but cuDNN and the CPU sum the convolutions in other orders
+    pairs = [(f"P{i + 2}", g, c) for i, (g, c) in enumerate(zip(feats_g, feats_c))]
+    pairs += [("objectness", obj_g, obj_c), ("deltas", deltas_g, deltas_c)]
+    for what, g, c in pairs:
+        g = g.cpu()
+        emit(phase="frcnn_consistency", what=what, shape=list(c.shape),
+             max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+        torch.testing.assert_close(g, c, rtol=FEAT_RTOL, atol=FEAT_ATOL)
+
+    m = models["cpu"]
+    rpn = m.cfg.rpn
+    with torch.inference_mode():
+        props = m.decode(feats_c, deltas_c, (IMG, IMG))
+        cand_boxes, cand_scores = RPN.level_candidates(props, obj_c.float(), sizes, (IMG, IMG),
+                                                       rpn)
+        rois, _, roi_valid = RPN.filter_proposals(props, obj_c.float(), sizes, (IMG, IMG), rpn)
+        n = rpn.pre_nms_top_n_test
+        nb, ns = cand_boxes.reshape(-1, n, 4), cand_scores.reshape(-1, n)
+        keep_c, ok_c = KN.greedy_nms_reference(nb, ns, rpn.nms_thresh, n)
+        pooled_c = KR.multiscale_roi_align_reference(list(feats_c[:4]), rois, (IMG, IMG))
+    keep_g, ok_g = KN.greedy_nms_cuda(nb.cuda(), ns.cuda(), rpn.nms_thresh, n)
+    identical = torch.equal(keep_g.cpu(), keep_c) and torch.equal(ok_g.cpu(), ok_c)
+    emit(phase="frcnn_consistency", what="NMS kernel (GPU) vs plain (CPU), RPN candidates",
+         groups=nb.shape[0], n=n, identical=identical, kept=int(ok_c.sum()),
+         alive=int((ns > float("-inf")).sum()))
+    check(identical, "NMS kernel on the GPU differs from the plain version on the CPU")
+    pooled_g = KR.multiscale_roi_align_cuda([f.cuda() for f in feats_c[:4]], rois.cuda(),
+                                            (IMG, IMG)).cpu()
+    emit(phase="frcnn_consistency", what="RoIAlign kernel (GPU) vs plain (CPU), RPN proposals",
+         shape=list(pooled_c.shape), valid_proposals=int(roi_valid.sum()),
+         max_abs_err=(pooled_g - pooled_c).abs().max().item(),
+         max_abs_ref=pooled_c.abs().max().item())
+    torch.testing.assert_close(pooled_g, pooled_c, rtol=ROI_F32_RTOL, atol=ROI_F32_ATOL)
+
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -208,28 +483,57 @@ def main() -> int:
 
     from object_detectors_tpu_torch import pipeline as PL
     from object_detectors_tpu_torch.kernels import _build
+    from object_detectors_tpu_torch.kernels import nms as KN
     from object_detectors_tpu_torch.kernels import preprocess as P
+    from object_detectors_tpu_torch.kernels import roi_align as KR
+    from object_detectors_tpu_torch.models import rpn as RPN
     from object_detectors_tpu_torch.ops import nms as N
 
+    sources = ("preprocess", "roi_align", "nms")
+    built = {name: not _build.library_path(name).exists() for name in sources}
     t0 = time.perf_counter()
-    lib = _build.library_path("preprocess")
-    built = not lib.exists()
-    _build.load_library("preprocess")
-    emit(phase="build", kernel="preprocess", nvcc=_build.find_nvcc(), built=built,
-         seconds=time.perf_counter() - t0)
+    seconds = _build.build_all(sources)
+    for name in sources:
+        _build.load_library(name)
+        emit(phase="build", kernel=name, nvcc=_build.find_nvcc(), built=built[name],
+             seconds=seconds[name])
+    emit(phase="build", all_seconds=time.perf_counter() - t0)
 
     max_err = phase_kernel(P)
     batches, timing = phase_e2e(P, PL)
     phase_consistency(PL, N, batches[0][:2])
+    del batches
 
+    roi_err = phase_roi_align_kernel(KR)
+    phase_nms_kernel(KN)
+    frcnn_batches, frcnn_launches, roi, nms = phase_frcnn_e2e(PL, P, KR, KN, RPN)
+    phase_frcnn_consistency(PL, P, KR, KN, RPN, frcnn_batches[0][:1])
+
+    roi["max_abs_err"] = max(roi["max_abs_err"], roi_err)
     kernels = [{
         "name": "preprocess_u8_bf16", "route": "cuda",
         "source": "object_detectors_tpu_torch/csrc/preprocess.cu",
         "replaces": "object_detectors_tpu/kernels/preprocess.py:33",
-        "launches": timing["launches"], "max_abs_err": max_err,
+        "launches": timing["launches"] + frcnn_launches["preprocess"],
+        "launches_by_path": {"yolo640": timing["launches"],
+                             "frcnn640": frcnn_launches["preprocess"]},
+        "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "multiscale_roi_align_fwd", "route": "cuda",
+        "source": "object_detectors_tpu_torch/csrc/roi_align.cu",
+        "replaces": "object_detectors_tpu/kernels/roi_align_pallas.py:1388 "
+                    "(and the :880, :659, :435 variants of the same function)",
+        **roi,
+        "library_ms": None,  # no single PyTorch call; torchvision is not a dependency
+    }, {
+        "name": "greedy_nms", "route": "cuda",
+        "source": "object_detectors_tpu_torch/csrc/nms.cu",
+        "replaces": "object_detectors_tpu/kernels/nms_pallas.py:94",
+        **nms,
+        "library_ms": None,  # no single PyTorch call; torchvision is not a dependency
     }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -61,7 +61,9 @@ def stage_times(pipe, batches, iters):
     return {name: t / iters for name, t in totals.items()}
 
 
-def trace(pipe, batches, calls, out_dir):
+def trace(pipe, batches, calls, out_dir, filename="yolo_stages_trace.json"):
+    """Device busy share and the kernels with the most device time over
+    ``calls`` calls, from a torch.profiler trace (kept in ``out_dir``)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -69,7 +71,7 @@ def trace(pipe, batches, calls, out_dir):
             pipe(batches[i % len(batches)])
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(out_dir or tmp, "yolo_stages_trace.json")
+        path = os.path.join(out_dir or tmp, filename)
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]

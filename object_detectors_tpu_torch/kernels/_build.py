@@ -4,7 +4,9 @@ Each source compiles alone into a shared library with a plain C interface
 (no PyTorch headers), which takes seconds; the library lands in the
 package's ``_build/`` directory (ignored by git) under a name that carries
 a hash of the source and the flags, so an edited source builds anew and an
-unchanged one is reused.
+unchanged one is reused. ``-fmad=false`` keeps nvcc from contracting a
+multiply and an add into an FMA, so that the kernels round as their plain
+PyTorch versions do. ``build_all`` runs one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -23,7 +27,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -81,3 +85,15 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def build_all(names) -> dict[str, float]:
+    """Build the given sources in parallel; returns each one's seconds."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))

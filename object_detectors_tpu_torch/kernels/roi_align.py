@@ -1,0 +1,116 @@
+"""Multiscale RoIAlign forward over FPN levels (MultiScaleRoIAlign,
+aligned=False): level maps [B, C, H_l, W_l] and boxes [B, N, 4] ->
+[B, N, oh, ow, C].
+
+Port of the four RoIAlign kernels of
+``object_detectors_tpu/kernels/roi_align_pallas.py`` (the bands_grouped
+default, bands, tiled and the per-RoI window kernel), which compute this one
+function. ``multiscale_roi_align_cuda`` launches the hand-written kernel in
+``csrc/roi_align.cu`` (or raises); ``multiscale_roi_align_reference`` is the
+plain version, ``ops/roi_align.py:multiscale_roi_align_canvas`` image by
+image. Both take each box's level from ``assign_fpn_levels`` on the boxes'
+device, so they agree on every level.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from object_detectors_tpu_torch.kernels._build import load_library
+from object_detectors_tpu_torch.ops.roi_align import (
+    _infer_scale, assign_fpn_levels, multiscale_roi_align_canvas,
+)
+
+MAX_LEVELS = 4
+
+# Kernel launches so far; a run sets it to 0 and reads it to show that a
+# path went through the kernel.
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def multiscale_roi_align_reference(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                                   image_size, output_size=(7, 7),
+                                   sampling_ratio: int = 2) -> torch.Tensor:
+    """Plain PyTorch version, one image at a time (the per-sample tensors of
+    a whole batch would not fit): [B, N, oh, ow, C] in the maps' dtype."""
+    out = [multiscale_roi_align_canvas([f[i] for f in features], boxes[i], image_size,
+                                       output_size, sampling_ratio)
+           for i in range(boxes.shape[0])]
+    oh, ow = output_size
+    if not out:
+        return boxes.new_empty((0, boxes.shape[1], oh, ow, features[0].shape[1]),
+                               dtype=features[0].dtype)
+    return torch.stack(out).to(features[0].dtype)
+
+
+def _check(features: Sequence[torch.Tensor], boxes: torch.Tensor, sampling_ratio) -> None:
+    if not 1 <= len(features) <= MAX_LEVELS:
+        raise ValueError(f"expected 1 to {MAX_LEVELS} level maps, got {len(features)}")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError(f"expected float32 boxes [B, N, 4], got {boxes.dtype} "
+                         f"{tuple(boxes.shape)}")
+    b, c = boxes.shape[0], features[0].shape[1]
+    for f in features:
+        if f.dim() != 4 or f.shape[0] != b or f.shape[1] != c:
+            raise ValueError(f"expected level maps [{b}, {c}, H, W], got {tuple(f.shape)}")
+        if f.dtype != features[0].dtype or f.dtype not in _DTYPE_CODE:
+            raise TypeError(f"level maps must all be float32 or all bfloat16, got {f.dtype}")
+    if int(sampling_ratio) < 1:
+        raise ValueError(f"sampling_ratio must be positive, got {sampling_ratio}")
+
+
+def _function():
+    fn = load_library("roi_align").roi_align_forward
+    if fn.argtypes is None:
+        level = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + level * MAX_LEVELS
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def multiscale_roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                              image_size, output_size=(7, 7),
+                              sampling_ratio: int = 2) -> torch.Tensor:
+    """Kernel wrapper: CUDA level maps [B, C, H_l, W_l] in channels_last
+    memory (NHWC bytes), float32 boxes [B, N, 4] -> [B, N, oh, ow, C] in the
+    maps' dtype."""
+    global launches
+    _check(features, boxes, sampling_ratio)
+    dev = boxes.device
+    if not all(t.is_cuda and t.device == dev for t in (*features, boxes)):
+        raise ValueError("multiscale_roi_align_cuda needs all its tensors on one CUDA device")
+    if not all(f.permute(0, 2, 3, 1).is_contiguous() for f in features):
+        raise ValueError("multiscale_roi_align_cuda needs channels_last level maps")
+    if not boxes.is_contiguous():
+        raise ValueError("multiscale_roi_align_cuda needs contiguous boxes")
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()  # the kernel reads a box as one 16-byte load
+    b, n = boxes.shape[:2]
+    c = features[0].shape[1]
+    oh, ow = output_size
+    out = torch.empty((b, n, oh, ow, c), dtype=features[0].dtype, device=dev)
+    if b * n == 0:
+        return out
+    levels = assign_fpn_levels(boxes, len(features))
+    args = []
+    for i in range(MAX_LEVELS):
+        if i < len(features):
+            f = features[i]
+            h, w = f.shape[-2:]
+            args += [f.data_ptr(), h, w, _infer_scale((h, w), image_size)]
+        else:
+            args += [None, 0, 0, 0.0]
+    with torch.cuda.device(dev):
+        err = _function()(_DTYPE_CODE[features[0].dtype], len(features), *args,
+                          boxes.data_ptr(), levels.data_ptr(), out.data_ptr(), b * n, n, c,
+                          oh, ow, int(sampling_ratio), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"RoIAlign kernel failed to launch: CUDA error {err}")
+    launches += 1
+    return out

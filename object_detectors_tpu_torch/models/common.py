@@ -34,6 +34,38 @@ class ConvBN(nn.Module):
         return F.leaky_relu(x, 0.1)
 
 
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """Run ``conv`` (float32 parameters) in the dtype of its input."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
+
+
+def linear(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
+    """Run ``fc`` (float32 parameters) in the dtype of its input."""
+    return F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))
+
+
+class FrozenBatchNorm(nn.Module):
+    """Batch norm with fixed statistics (torchvision FrozenBatchNorm2d), as
+    the Flax module computes it: scale = weight / sqrt(var + eps) and
+    shift = bias - mean * scale in float32, then x * scale + shift in the
+    input's dtype. The four tensors are buffers named as the Flax
+    ``frozen`` collection names them."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.weight / torch.sqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """nn.Upsample(scale_factor=2, mode='nearest') on NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")

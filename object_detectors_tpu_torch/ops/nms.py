@@ -1,8 +1,12 @@
-"""Top-k selection and majority-vote NMS for the YOLO serving path.
+"""Top-k selection and NMS: greedy, class-aware and majority-vote.
 
-Port of the JAX package's ``ops/nms.py`` (``exact_blocked_topk``,
-``nms_majority`` with its fixed-point and scan methods), written over a
-leading batch dimension where the JAX pipeline ``vmap``s per image.
+Port of the JAX package's ``ops/nms.py`` (``exact_blocked_topk``, ``nms``,
+``batched_nms``, the fixed-point kept set, ``nms_majority`` with its
+fixed-point and scan methods), written over a leading batch dimension where
+the JAX code ``vmap``s per image. The greedy kept sets come from
+``greedy_nms``: the hand-written kernel of ``kernels/nms.py`` for a CUDA
+tensor, its plain version for a CPU tensor. Greedy NMS has one kept set,
+so this equals the JAX fixed point without a loop on the host.
 
 Ties follow ``lax.top_k`` and ``jnp.argsort``: equal values keep the lower
 index first. ``torch.topk`` promises no tie order, so selections here go
@@ -13,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from object_detectors_tpu_torch.kernels import nms as nms_kernel
 from object_detectors_tpu_torch.ops.boxes import pairwise_iou
 
 
@@ -168,3 +173,60 @@ def nms_majority(boxes: torch.Tensor, scores: torch.Tensor,
         return _majority_nms_scan(boxes, s, labels, num_classes, iou_threshold,
                                   max_output)
     raise ValueError(f"unknown nms_majority method {method!r}")
+
+
+def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+               max_output: int, valid: torch.Tensor | None = None):
+    """Greedy NMS per group: boxes [G, N, 4] xyxy, scores [G, N] (-inf or
+    ``valid`` False marks a dead box) -> (keep_idx [G, K] int32 in greedy
+    order, padded with -1; valid [G, K]), K = max_output. The contract of
+    the JAX ``nms_pallas`` / ``_select_max_nms`` with a group dimension."""
+    if boxes.is_cuda:
+        return nms_kernel.greedy_nms_cuda(boxes, scores, iou_threshold, max_output, valid)
+    if boxes.device.type != "cpu":
+        raise ValueError(f"no greedy NMS for device {boxes.device}")
+    return nms_kernel.greedy_nms_reference(boxes, scores, iou_threshold, max_output,
+                                           valid)
+
+
+def fixedpoint_keep(boxes: torch.Tensor, scores: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """The greedy kept set as a mask [G, N] in input order (the JAX
+    ``_fixedpoint_keep``, whose fixed point is this set)."""
+    g, n = scores.shape
+    keep, ok = greedy_nms(boxes, scores, iou_threshold, n)
+    slots = torch.where(ok, keep, n).long()  # padding goes to a spare column
+    kept = torch.zeros((g, n + 1), dtype=torch.bool, device=scores.device)
+    return kept.scatter_(1, slots, True)[:, :n]
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.5,
+        max_output: int = 100, valid: torch.Tensor | None = None):
+    """Greedy NMS with a fixed output size over a batch: boxes [B, N, 4],
+    scores [B, N], valid [B, N] or None. Suppresses IoU strictly above the
+    threshold. Returns (boxes [B, K, 4], scores [B, K], keep_idx [B, K]
+    padded with -1, valid [B, K]) in score order."""
+    s = scores if valid is None else torch.where(valid, scores, float("-inf"))
+    keep_idx, out_valid = greedy_nms(boxes, s, iou_threshold, max_output)
+    idx_c = keep_idx.clamp(min=0).long()
+    out_boxes = torch.where(out_valid[..., None], gather_rows(boxes, idx_c), 0.0)
+    out_scores = torch.where(out_valid, torch.gather(s, 1, idx_c), 0.0)
+    return out_boxes, out_scores, keep_idx, out_valid
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, class_ids: torch.Tensor,
+                iou_threshold: float = 0.5, max_output: int = 100,
+                valid: torch.Tensor | None = None):
+    """Class-aware NMS through the coordinate offset class * (max_coord + 1)
+    (torchvision batched_nms): boxes of different classes never overlap.
+    Returns (boxes, scores, labels, keep_idx, valid), labels -1 where not
+    valid."""
+    masked = boxes if valid is None else torch.where(valid[..., None], boxes, 0.0)
+    max_coord = masked.amax(dim=(1, 2))
+    offsets = class_ids.to(boxes.dtype)[..., None] * (max_coord[:, None, None] + 1.0)
+    _, out_scores, keep_idx, out_valid = nms(boxes + offsets, scores, iou_threshold,
+                                             max_output, valid)
+    idx_c = keep_idx.clamp(min=0).long()
+    out_boxes = torch.where(out_valid[..., None], gather_rows(boxes, idx_c), 0.0)
+    out_labels = torch.where(out_valid, torch.gather(class_ids, 1, idx_c), -1)
+    return out_boxes, out_scores, out_labels, keep_idx, out_valid

@@ -1,11 +1,15 @@
-"""YOLOv3 serving pipeline: images -> boxes, scores, labels, valid.
+"""Serving pipelines: uint8 or normalized images -> boxes, scores, labels,
+valid.
 
-Port of ``bench.py:build_pipeline`` / ``build_pipeline_uint8`` and
+YOLOv3: port of ``bench.py:build_pipeline`` / ``build_pipeline_uint8`` and
 ``serve.py:build_yolo_pipeline`` of the JAX repository, with the same
 defaults (80 classes, 640², top-256, 100 detections, conf 0.1, IoU 0.6,
 bf16). The steps: YOLOv3 raw maps -> score = sigmoid(obj) * softmax-max ->
 exact blocked top-k -> decode of the selected rows only -> class-agnostic
 majority-vote NMS. The uint8 variant puts the normalize kernel in front.
+
+Faster R-CNN: port of the ``frcnn640`` graph of ``bench.py:run_frcnn``
+(91 classes, 640², bf16): the normalize kernel, then ``FasterRCNN``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import torch
 from object_detectors_tpu_torch._device import resolve_device
 from object_detectors_tpu_torch.kernels.preprocess import preprocess_images
 from object_detectors_tpu_torch.models import yolo_criterion as YC
+from object_detectors_tpu_torch.models.faster_rcnn import (
+    FasterRCNN, FasterRCNNConfig, init_frcnn_,
+)
 from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
 from object_detectors_tpu_torch.ops.nms import exact_blocked_topk, gather_rows, nms_majority
 
@@ -127,3 +134,44 @@ def build_yolo_pipeline(num_classes: int = 80, img_size: int = 640,
     """The serving pipeline: the bench graph at top-512."""
     return build_pipeline(num_classes, img_size, topk, max_det, dtype,
                           uint8=uint8_input, **kwargs)
+
+
+class FrcnnPipeline:
+    """Callable uint8 Faster R-CNN graph around one ``FasterRCNN`` on one
+    device: ``preprocess_images`` then the model."""
+
+    def __init__(self, model: FasterRCNN, dtype: torch.dtype, img_size: int):
+        self.model = model
+        self.dtype = dtype
+        self.img_size = img_size
+
+    @torch.inference_mode()
+    def __call__(self, images: torch.Tensor, on_stage=None):
+        """uint8 [B, img_size, img_size, 3] -> (boxes [B, 100, 4], scores,
+        labels 1-based, valid). ``on_stage(name)``, when given, is called
+        after each stage."""
+        if tuple(images.shape[1:]) != (self.img_size, self.img_size, 3):
+            raise ValueError(f"expected [B, {self.img_size}, {self.img_size}, 3] images, "
+                             f"got {tuple(images.shape)}")
+        x = preprocess_images(images, self.dtype)
+        if on_stage is not None:
+            on_stage("normalize")
+        return self.model(x, on_stage=on_stage)
+
+
+def build_frcnn_pipeline_uint8(num_classes: int = 91, img_size: int = 640,
+                               dtype: torch.dtype = torch.bfloat16,
+                               device: str | torch.device = "cuda",
+                               model: FasterRCNN | None = None) -> FrcnnPipeline:
+    """The ``frcnn640`` graph. Without ``model``, a ResNet-50-FPN
+    ``FasterRCNN`` of ``num_classes`` gets the seeded random init (seed 0); a
+    given model is copied, so the caller's stays on its device and dtype,
+    and the copy runs its parameters as they are with activations in
+    ``dtype``."""
+    dev = resolve_device(device)
+    if model is None:
+        model = init_frcnn_(FasterRCNN(FasterRCNNConfig(num_classes=num_classes)))
+    else:
+        model = copy.deepcopy(model)
+    model.dtype = dtype
+    return FrcnnPipeline(model.to(dev).eval(), dtype, img_size)

@@ -1,11 +1,13 @@
-"""Flax YOLO variables -> a state dict for ``models.yolo.YoloHead``.
+"""Flax variables -> state dicts for the port's models.
 
-Takes nested dicts of numpy arrays (``params`` and ``batch_stats`` as Flax
-stores them), so neither flax nor msgpack is needed. The port's submodules
-carry the Flax module names, so each leaf maps by its path:
-conv ``kernel`` HWIO -> ``weight`` OIHW, conv ``bias`` -> ``bias``,
-batch norm ``scale`` / ``bias`` -> ``weight`` / ``bias``,
-``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
+Takes nested dicts of numpy arrays (the collections as Flax stores them),
+so neither flax nor msgpack is needed. The port's submodules carry the Flax
+module names, so each leaf maps by its path: conv ``kernel`` HWIO ->
+``weight`` OIHW, Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in],
+``bias`` -> ``bias``; for YOLO, batch norm ``scale`` / ``bias`` ->
+``weight`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` ->
+``running_mean`` / ``running_var``; for Faster R-CNN, the ``frozen``
+collection's leaves are the FrozenBatchNorm buffers of the same names.
 """
 
 from __future__ import annotations
@@ -45,4 +47,24 @@ def flax_yolo_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
             np.array(value, np.float32))
         if leaf == "mean":
             state[".".join(mod + ["num_batches_tracked"])] = torch.tensor(0)
+    return state
+
+
+def flax_frcnn_to_torch(params, frozen) -> dict[str, torch.Tensor]:
+    """Flax ``FasterRCNN`` variables -> a state dict for
+    ``models.faster_rcnn.FasterRCNN`` (the ``fc6`` input is already in the
+    port's (y, x, c) order, so it needs no permutation)."""
+    state = {}
+    for path, value in _leaves(params):
+        *mod, leaf = path
+        arr = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            name, arr = "weight", arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"unexpected Flax parameter {'/'.join(path)}")
+        state[".".join(mod + [name])] = torch.from_numpy(np.array(arr))
+    for path, value in _leaves(frozen):
+        state[".".join(path)] = torch.from_numpy(np.array(value, np.float32))
     return state

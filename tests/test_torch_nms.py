@@ -1,14 +1,17 @@
-"""The port's top-k and majority-vote NMS (object_detectors_tpu_torch/ops)
-against the JAX package's ops/nms.py on the same numpy inputs. Indices,
-labels and valid flags must be identical, boxes and scores equal."""
+"""The port's top-k and NMS (object_detectors_tpu_torch/ops/nms.py and the
+plain version of kernels/nms.py) against the JAX package's ops/nms.py and
+its Pallas nms_pallas kernel (interpret mode) on the same numpy inputs.
+Indices, labels and valid flags must be identical, boxes and scores equal."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from object_detectors_tpu.kernels.nms_pallas import nms_pallas
 from object_detectors_tpu.ops import boxes as jax_boxes
 from object_detectors_tpu.ops import nms as jax_nms
+from object_detectors_tpu_torch.kernels import nms as K
 from object_detectors_tpu_torch.ops import boxes as B
 from object_detectors_tpu_torch.ops import nms as N
 
@@ -109,3 +112,106 @@ def test_nms_majority_all_invalid_and_unknown_method():
     assert not ov.any() and (olab == -1).all() and (ob == 0).all() and (osc == 0).all()
     with pytest.raises(ValueError):
         N.nms_majority(*args, method="greedy")
+
+
+def _uniform(seed, groups, n):
+    """The candidates of the JAX kernel test: uniform boxes and scores."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(groups, n, 2).astype(np.float32) * 80
+    wh = rng.rand(groups, n, 2).astype(np.float32) * 30 + 2
+    return (np.concatenate([xy, xy + wh], -1), rng.rand(groups, n).astype(np.float32),
+            rng.rand(groups, n) > 0.25)
+
+
+@pytest.mark.parametrize("n,k", [(64, 16), (128, 100)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_greedy_nms_matches_nms_pallas_and_select_max(n, k, masked):
+    boxes, scores, valid = _uniform(1, 3, n)
+    keep, ok = N.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5, k,
+                            torch.from_numpy(valid) if masked else None)
+    assert keep.dtype == torch.int32 and keep.shape == ok.shape == (3, k)
+    for g in range(3):
+        v = jnp.asarray(valid[g]) if masked else None
+        ki_p, v_p = nms_pallas(jnp.asarray(boxes[g]), jnp.asarray(scores[g]), 0.5, k,
+                               valid=v, interpret=True)
+        s = np.where(valid[g], scores[g], -np.inf) if masked else scores[g]
+        ki_s, v_s = jax_nms._select_max_nms(jnp.asarray(boxes[g]), jnp.asarray(s), 0.5, k)
+        np.testing.assert_array_equal(ok[g].numpy(), np.asarray(v_p))
+        np.testing.assert_array_equal(keep[g].numpy(), np.asarray(ki_p))
+        np.testing.assert_array_equal(ok[g].numpy(), np.asarray(v_s))
+        np.testing.assert_array_equal(keep[g].numpy(), np.where(np.asarray(v_s),
+                                                                np.asarray(ki_s), -1))
+
+
+def test_greedy_nms_ties_dead_boxes_and_empty_groups():
+    boxes = np.array([[0, 0, 10, 10], [0, 0, 10, 10], [30, 30, 40, 40], [1, 0, 11, 10],
+                      [30, 30, 40, 40]], np.float32)
+    scores = np.array([0.5, 0.5, 0.5, 0.9, -np.inf], np.float32)
+    b = torch.from_numpy(np.stack([boxes] * 3))
+    s = torch.from_numpy(np.stack([scores, scores, np.full(5, -np.inf, np.float32)]))
+    s[1, 0] = float("nan")
+    keep, ok = N.greedy_nms(b, s, 0.5, 4)
+    # equal scores go lowest index first; NaN and -inf are dead
+    assert keep.tolist() == [[3, 2, -1, -1], [3, 2, -1, -1], [-1] * 4]
+    assert ok.tolist() == [[True, True, False, False]] * 2 + [[False] * 4]
+    ki_p, v_p = nms_pallas(jnp.asarray(boxes), jnp.asarray(scores), 0.5, 4, interpret=True)
+    assert np.asarray(ki_p)[np.asarray(v_p)].tolist() == [3, 2]
+    keep, ok = N.greedy_nms(torch.zeros(2, 0, 4), torch.zeros(2, 0), 0.5, 3)
+    assert keep.tolist() == [[-1] * 3] * 2 and not ok.any()
+
+
+@pytest.mark.parametrize("n,max_output", [(300, 100), (600, 600), (40, 64)])
+def test_nms_matches_jax(n, max_output):
+    boxes, scores, labels, valid = _clustered(200 + n, 2, n, 4)
+    out = [t.numpy() for t in N.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
+                                    max_output, torch.from_numpy(valid))]
+    for i in range(2):
+        ref = [np.asarray(r) for r in jax_nms.nms(
+            jnp.asarray(boxes[i]), jnp.asarray(scores[i]), 0.5, max_output,
+            jnp.asarray(valid[i]))]
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o[i], r)
+        assert 0 < ref[3].sum() < valid[i].sum()
+
+
+@pytest.mark.parametrize("n,max_output", [(300, 100), (1000, 100)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_batched_nms_matches_jax(n, max_output, masked):
+    boxes, scores, labels, valid = _clustered(300 + n, 2, n, 5)
+    v = torch.from_numpy(valid) if masked else None
+    out = [t.numpy() for t in N.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                            torch.from_numpy(labels), 0.5, max_output, v)]
+    for i in range(2):
+        ref = [np.asarray(r) for r in jax_nms.batched_nms(
+            jnp.asarray(boxes[i]), jnp.asarray(scores[i]), jnp.asarray(labels[i]), 0.5,
+            max_output, jnp.asarray(valid[i]) if masked else None)]
+        for o, r in zip(out, ref):  # boxes, scores, labels, keep_idx, valid
+            np.testing.assert_array_equal(o[i], r)
+        assert ref[4].sum() > 0
+
+
+@pytest.mark.parametrize("n,seed", [(300, 0), (700, 1)])
+def test_fixedpoint_keep_matches_jax(n, seed):
+    """N > 256 sends the JAX fixed point down its chunked branch."""
+    boxes, scores, _, valid = _clustered(400 + seed, 3, n, 3)
+    scores = np.where(valid, scores, -np.inf).astype(np.float32)
+    out = N.fixedpoint_keep(torch.from_numpy(boxes), torch.from_numpy(scores), 0.7)
+    for i in range(3):
+        ref, converged = jax_nms._fixedpoint_keep(jnp.asarray(boxes[i]),
+                                                  jnp.asarray(scores[i]), 0.7)
+        assert bool(converged)
+        np.testing.assert_array_equal(out[i].numpy(), np.asarray(ref))
+        assert 0 < out[i].sum() < valid[i].sum()
+
+
+def test_greedy_nms_cuda_wrapper_checks_its_inputs():
+    boxes, scores, valid = _uniform(1, 2, 16)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.greedy_nms_cuda(b, s, 0.5, 4)
+    with pytest.raises(TypeError, match="float32"):
+        K.greedy_nms_cuda(b.double(), s, 0.5, 4)
+    with pytest.raises(ValueError, match="valid"):
+        K.greedy_nms_cuda(b, s, 0.5, 4, valid=torch.from_numpy(valid).int())
+    with pytest.raises(ValueError, match="boxes"):
+        K.greedy_nms_cuda(b[0], s, 0.5, 4)

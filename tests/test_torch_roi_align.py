@@ -1,0 +1,139 @@
+"""The port's RoIAlign (object_detectors_tpu_torch/ops/roi_align.py and the
+plain version of kernels/roi_align.py) against the JAX poolers: the XLA
+roi_align and canvas pooler, and the Pallas hybrid pooler in its
+bands_grouped and tiled modes, run in interpret mode."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from object_detectors_tpu.kernels.roi_align_pallas import multiscale_roi_align_hybrid
+from object_detectors_tpu.ops import roi_align as jax_ra
+from object_detectors_tpu_torch.kernels import roi_align as K
+from object_detectors_tpu_torch.ops import roi_align as R
+from test_roi_align_pallas import _setup
+
+SIZE = 256
+EXTREME = [[0, 0, 256, 256], [250, 250, 256, 256], [0, 0, 256, 6], [3, 0, 9, 256]]
+
+
+def nchw(feats):
+    """JAX NHWC level maps -> NCHW tensors in channels_last memory."""
+    return [torch.from_numpy(np.array(f)).permute(0, 3, 1, 2) for f in feats]
+
+
+def test_assign_fpn_levels_matches_jax():
+    rng = np.random.RandomState(0)
+    xy = rng.rand(500, 2).astype(np.float32) * 600
+    wh = np.exp(rng.rand(500, 2) * 7).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], 1)
+    # sides at the level boundaries, zero and negative areas
+    boxes[:6] = [[0, 0, 112, 112], [0, 0, 224, 224], [0, 0, 448, 448], [5, 5, 5, 9],
+                 [9, 9, 5, 5], [0, 0, 111.99, 112]]
+    for levels in (4, 2):
+        out = R.assign_fpn_levels(torch.from_numpy(boxes), levels)
+        ref = jax_ra.assign_fpn_levels(jnp.asarray(boxes), levels)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert set(out.tolist()) == {0, 1}
+
+
+@pytest.mark.parametrize("output_size,scale,ratio", [((7, 7), 0.25, 2), ((14, 14), 0.125, 2),
+                                                     ((7, 7), 0.5, 3)])
+def test_roi_align_matches_jax(output_size, scale, ratio):
+    feats, boxes = _setup(seed=1, b=1, n=30)
+    f = np.array(feats[0][0])
+    bx = boxes[0]
+    bx[:4] = EXTREME
+    out = R.roi_align(torch.from_numpy(f).permute(2, 0, 1), torch.from_numpy(bx),
+                      output_size, scale, ratio)
+    ref = jax_ra.roi_align(jnp.asarray(f), jnp.asarray(bx), output_size, scale, ratio)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("output_size", [(7, 7), (14, 14)])
+def test_canvas_pooler_matches_jax(output_size):
+    feats, boxes = _setup(seed=3)
+    boxes[0, :4] = EXTREME
+    for i in range(boxes.shape[0]):
+        out = R.multiscale_roi_align_canvas([f[i] for f in nchw(feats)],
+                                            torch.from_numpy(boxes[i]), (SIZE, SIZE),
+                                            output_size)
+        ref = jax_ra.multiscale_roi_align_canvas(tuple(f[i] for f in feats),
+                                                 jnp.asarray(boxes[i]), (SIZE, SIZE),
+                                                 output_size)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+# bands_grouped takes about 30 s to interpret per new shape here, so it runs
+# at the one shape of the mixed and extreme cases; tiled runs every case
+@pytest.mark.parametrize("mode,case", [
+    ("bands_grouped", "mixed"), ("bands_grouped", "extreme"), ("tiled", "mixed"),
+    ("tiled", "extreme"), ("tiled", "single"), ("tiled", "14x14")])
+def test_pool_multiscale_matches_pallas_pooler(mode, case):
+    output_size = (14, 14) if case == "14x14" else (7, 7)
+    feats, boxes = _setup(seed=7, n=12 if case == "14x14" else 40)
+    if case == "extreme":
+        boxes[0, :4] = EXTREME
+        boxes[1, :2] = [[5, 5, 40, 200], [10, 10, 200, 40]]
+    elif case == "single":
+        boxes = np.asarray([[[10.0, 12.0, 60.0, 70.0]]] * 2, np.float32)
+    else:
+        boxes[..., 2] = np.minimum(boxes[..., 2], boxes[..., 0] + 100)
+        boxes[..., 3] = np.minimum(boxes[..., 3], boxes[..., 1] + 100)
+    ref = multiscale_roi_align_hybrid(feats, jnp.asarray(boxes), (SIZE, SIZE), output_size,
+                                      interpret=True, mode=mode)
+    out = R.pool_multiscale(nchw(feats), torch.from_numpy(boxes), (SIZE, SIZE), output_size)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
+def test_reference_keeps_the_feature_dtype_and_layout():
+    feats, boxes = _setup(seed=2, n=5)
+    maps = [f.to(torch.bfloat16) for f in nchw(feats)]
+    out = K.multiscale_roi_align_reference(maps, torch.from_numpy(boxes), (SIZE, SIZE))
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 5, 7, 7, 8)
+    f32 = K.multiscale_roi_align_reference([m.float() for m in maps], torch.from_numpy(boxes),
+                                           (SIZE, SIZE))
+    torch.testing.assert_close(out, f32.to(torch.bfloat16), rtol=0, atol=0)
+    empty = K.multiscale_roi_align_reference(maps, torch.zeros(0, 5, 4), (SIZE, SIZE))
+    assert empty.shape == (0, 5, 7, 7, 8)
+
+
+def test_infer_scale_and_its_check():
+    assert R._infer_scale((160, 160), (640, 640)) == jax_ra._infer_scale((160, 160), (640, 640))
+    assert R._infer_scale((13, 13), (800, 800)) == 1 / 64
+    with pytest.raises(ValueError, match="anisotropic"):
+        R._infer_scale((160, 80), (640, 640))
+
+
+def test_cuda_wrapper_checks_its_inputs():
+    feats, boxes = _setup(seed=2, n=5)
+    maps = nchw(feats)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.multiscale_roi_align_cuda(maps, torch.from_numpy(boxes), (SIZE, SIZE))
+    with pytest.raises(ValueError, match="level maps"):
+        K.multiscale_roi_align_cuda(maps * 2, torch.from_numpy(boxes), (SIZE, SIZE))
+    with pytest.raises(ValueError, match="boxes"):
+        K.multiscale_roi_align_cuda(maps, torch.from_numpy(boxes).double(), (SIZE, SIZE))
+
+
+def test_one_pixel_level_follows_the_flat_pooler():
+    """At a 32 px image P5 is 1x1. There the JAX canvas pooler's 2x2 slice
+    starts one row above the level and is clipped into the next rows of its
+    canvas, so it differs from the JAX flat pooler (torchvision semantics);
+    the port follows the flat pooler."""
+    rng = np.random.RandomState(0)
+    feats = [rng.randn(32 // s, 32 // s, 4).astype(np.float32) for s in (4, 8, 16, 32)]
+    boxes = np.asarray([[0, 0, 500, 500], [-10, -10, 470, 460]], np.float32)
+    assert np.asarray(jax_ra.assign_fpn_levels(jnp.asarray(boxes), 4)).tolist() == [3, 3]
+    out = R.multiscale_roi_align_canvas([torch.from_numpy(f).permute(2, 0, 1) for f in feats],
+                                        torch.from_numpy(boxes), (32, 32))
+    flat = jax_ra.multiscale_roi_align_flat(tuple(map(jnp.asarray, feats)), jnp.asarray(boxes),
+                                            (32, 32))
+    canvas = jax_ra.multiscale_roi_align_canvas(tuple(map(jnp.asarray, feats)),
+                                                jnp.asarray(boxes), (32, 32))
+    np.testing.assert_allclose(out.numpy(), np.asarray(flat), rtol=1e-4, atol=1e-5)
+    assert np.abs(np.asarray(canvas) - np.asarray(flat)).max() > 0.1
