@@ -7,17 +7,18 @@ Phases, each printed as JSON lines:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions; exits 1 without a GPU.
-2. build: compiles the three CUDA kernels from
+2. build: compiles the four CUDA kernels from
    ``object_detectors_tpu_torch/csrc`` with nvcc, one process per source, all
    at once; each one timed.
 3. kernel: holds the normalize kernel bitwise equal to its plain PyTorch
-   version at 64x640x640x3, at ragged shapes and at a base offset by one byte.
+   version at 128x640x640x3, at ragged shapes and at a base offset by one byte.
 4. e2e: full-width YOLOv3 (Darknet-53, 80 classes, 640², bf16, seeded random
-   weights) through ``build_pipeline_uint8`` at batch 64 on three distinct
-   pre-staged uint8 batches: 2 warm-up calls, 10 timed calls, one final sync.
-   The kernel's launch count is set to 0 before and read after; then the
-   kernel alone is timed with CUDA events beside its bound and its plain
-   version.
+   weights) through ``build_pipeline_uint8`` at batch 128 (the batch of the
+   JAX bench's ``yolo640`` row) on three distinct pre-staged uint8 batches:
+   2 warm-up calls, 10 timed calls, one final sync. The kernel's launch
+   count is set to 0 before and read after. Then a line at batch 64 (the
+   batch of the earlier runs), and the kernel alone timed with CUDA events
+   beside its bound and its plain version.
 5. consistency: two images through the port in f32 on the GPU (TF32 off) and
    on the CPU; raw outputs must agree within the stated tolerance, and
    ``nms_majority`` must give identical results on both devices.
@@ -37,6 +38,26 @@ Phases, each printed as JSON lines:
    against the plain version on the CPU for the same proposals; the NMS
    kernel identical to the plain version on the CPU on the RPN's real
    per-level candidates.
+9. kernel (fused_block): the fused bottleneck kernel against its plain
+   version (TF32 off) at the five ResNet-50 block shapes of a 640² batch of
+   16, an odd shape and a tiny one with and without the projection, within
+   the JAX test's tolerance and within one bf16 ulp of max(|plain|, 1), with
+   a bounded share of elements not bitwise equal at the five shapes and
+   none at the small ones; at the five shapes, its time beside the plain
+   version's, the bound and the unfused cuDNN block's.
+10. retinanet_e2e: full-width RetinaNet R50-FPN (91 classes, 640², bf16,
+   seeded random weights) through ``build_retinanet_pipeline_uint8`` at
+   batch 16, timed as frcnn_e2e, with the backbone unfused and then fused
+   (``backbone_fused="auto"``: 13 kernel launches a call); every kernel's
+   launch count is set to 0 before each timed run and read after.
+11. frcnn_fused: frcnn640's backbone+FPN alone with the backbone unfused and
+   fused.
+12. retinanet_post: the postprocess on seeded live bf16 logits [16, 76725,
+   91] around the score threshold, on the GPU and on the CPU: labels, valid
+   and order identical, boxes and scores within the stated tolerance; the
+   NMS kernel timed at its shape there (16 x 2000, K 300).
+13. retinanet_consistency: one image in f32 (TF32 off) on the GPU and on
+   the CPU: the head's outputs within the stated tolerance.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -45,6 +66,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,8 +74,9 @@ import time
 import numpy as np
 import torch
 
-BATCH, IMG, NUM_CLASSES = 64, 640, 80
+BATCH, IMG, NUM_CLASSES = 128, 640, 80
 FRCNN_BATCH, FRCNN_CLASSES = 16, 91
+RETINA_BATCH, RETINA_CLASSES = 16, 91
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores, published
 RAW_RTOL = RAW_ATOL = 1e-3      # f32 GPU vs CPU raw maps (see phase 5)
@@ -64,6 +87,29 @@ ROI_F32_RTOL, ROI_F32_ATOL = 1e-4, 1e-5
 ROI_BF16_RTOL, ROI_BF16_ATOL = 2 ** -7, 1e-5
 FEAT_RTOL = FEAT_ATOL = 1e-3    # f32 GPU vs CPU FPN maps and RPN outputs (phase 8)
 IOU_OPS = 13                    # f32 operations of one IoU and its compare
+# fused bottleneck kernel vs plain, and its bf16 output against the plain
+# chain: the tolerance of tests/test_fused_block.py (bf16 + BN-fold rounding)
+FUSED_RTOL, FUSED_ATOL, FUSED_MEAN = 0.1, 0.15, 1e-2
+# ... and, since the kernel and its plain version take the same folded
+# operands and round at the same points, what is left is f32 summation order
+# and the bf16 roundings it flips: the largest difference within one bf16 ulp
+# of max(|plain|, 1) over the whole output (a flip of t2 can carry an element
+# below 2 by two of its own ulps), at most this share of elements not
+# bitwise equal (3.4 % seen at layer4, where the sums are longest), and the
+# short sums of the tiny shapes bitwise equal
+FUSED_MAX_ULPS, FUSED_UNEQUAL_SHARE = 1.0, 0.1
+BF16_TC_OPS_PER_S = 989.4e12    # H100 SXM dense bf16 tensor cores, published
+# the stride-1 blocks of ResNet-50 on a 640² image: (count, H, Cin, Cm, Cout,
+# projection); 13 launches a forward
+RESNET50_FUSED_BLOCKS = ((1, 160, 64, 64, 256, True), (2, 160, 256, 64, 256, False),
+                         (3, 80, 512, 128, 512, False), (5, 40, 1024, 256, 1024, False),
+                         (2, 20, 2048, 512, 2048, False))
+FROZEN_RANGES = {"weight": (0.5, 1.5), "bias": (-0.1, 0.1), "running_mean": (-0.1, 0.1),
+                 "running_var": (0.5, 1.5)}
+# RetinaNet postprocess, GPU vs CPU port: scores within 1e-5; the decode's
+# exp can differ by an ulp between the devices, and a corner is a difference
+# of values up to 640 px, so boxes agree to two f32 ulps at 640 (2^-13)
+SCORE_ATOL, BOX_ATOL = 1e-5, 2.0 ** -13
 
 
 def emit(**fields):
@@ -131,10 +177,10 @@ def phase_e2e(P, PL):
     batches = [torch.from_numpy(b).cuda() for b in host]
     torch.cuda.synchronize()
 
-    P.launches = 0
     for i in range(2):
         out = pipe(batches[i % 3])
     float(out[1].sum())  # host read
+    P.launches = 0
     t0 = time.perf_counter()
     outs = [pipe(batches[i % 3]) for i in range(10)]
     float(outs[-1][1].sum())  # one final sync
@@ -150,6 +196,16 @@ def phase_e2e(P, PL):
     emit(phase="e2e", batch=BATCH, img=IMG, imgs_per_s=BATCH / dt, ms_per_batch=dt * 1e3,
          valid_detections=int(valid.sum()), preprocess_launches=launches,
          max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    half = [b[:64] for b in batches]
+    for i in range(2):
+        out = pipe(half[i % 3])
+    float(out[1].sum())  # host read
+    t0 = time.perf_counter()
+    outs = [pipe(half[i % 3]) for i in range(10)]
+    float(outs[-1][1].sum())
+    dt = (time.perf_counter() - t0) / 10
+    emit(phase="e2e", batch=64, img=IMG, imgs_per_s=64 / dt, ms_per_batch=dt * 1e3,
+         note="batch 64, the batch of the runs before batch 128")
 
     u8 = batches[0]
     ms = cuda_ms(lambda: P.preprocess_images_cuda(u8), 20)
@@ -329,6 +385,23 @@ def greedy_iou_count(boxes, scores, keep, ok, thr) -> int:
     return int(((first + 1) * suppressed).sum()) + int((n_kept * (n_kept - 1) // 2).sum())
 
 
+def timed_calls(pipe, batches, counters, iters=8):
+    """2 warm-up calls, then ``iters`` back-to-back calls ending in one host
+    read; every counter (a kernel module's ``launches``) is set to 0 just
+    before the timed calls and read just after. Returns (seconds a call,
+    last output, launches by name)."""
+    for i in range(2):
+        out = pipe(batches[i % 3])
+    float(out[1].sum())  # host read
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    outs = [pipe(batches[i % 3]) for i in range(iters)]
+    float(outs[-1][1].sum())  # one final sync
+    dt = (time.perf_counter() - t0) / iters
+    return dt, outs[-1], {name: mod.launches for name, mod in counters.items()}
+
+
 def phase_frcnn_e2e(PL, P, KR, KN, RPN):
     pipe = PL.build_frcnn_pipeline_uint8(num_classes=FRCNN_CLASSES, img_size=IMG,
                                          device="cuda")
@@ -337,18 +410,9 @@ def phase_frcnn_e2e(PL, P, KR, KN, RPN):
                                             dtype=np.uint8)).cuda() for _ in range(3)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(2):
-        out = pipe(batches[i % 3])
-    float(out[1].sum())  # host read
     iters = 8
-    P.launches = KR.launches = KN.launches = 0
-    t0 = time.perf_counter()
-    outs = [pipe(batches[i % 3]) for i in range(iters)]
-    float(outs[-1][1].sum())  # one final sync
-    dt = (time.perf_counter() - t0) / iters
-    launches = {"preprocess": P.launches, "roi_align": KR.launches, "nms": KN.launches}
-
-    boxes, scores, labels, valid = outs[-1]
+    dt, (boxes, scores, labels, valid), launches = timed_calls(
+        pipe, batches, {"preprocess": P, "roi_align": KR, "nms": KN}, iters)
     check(tuple(boxes.shape) == (FRCNN_BATCH, 100, 4) and tuple(valid.shape) == (FRCNN_BATCH, 100),
           "frcnn e2e output shape")
     check(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()),
@@ -471,6 +535,270 @@ def phase_frcnn_consistency(PL, P, KR, KN, RPN, u8):
     torch.testing.assert_close(pooled_g, pooled_c, rtol=ROI_F32_RTOL, atol=ROI_F32_ATOL)
 
 
+def fused_case(seed: int, b: int, h: int, w: int, cin: int, cm: int, down: bool):
+    """A stride-1 Bottleneck (Cout = 4 Cm) on the card with seeded LeCun-scale
+    weights and frozen statistics, and a seeded bf16 input in channels_last
+    memory."""
+    from object_detectors_tpu_torch.models.resnet import Bottleneck
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    block = Bottleneck(cin, cm, 1, downsample=down).cuda().eval()
+    with torch.no_grad():
+        for t in block.parameters():
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda") * t[0].numel() ** -0.5)
+        for name, t in block.named_buffers():
+            low, high = FROZEN_RANGES[name.split(".")[-1]]
+            t.copy_(low + (high - low) * torch.rand(t.shape, generator=g, device="cuda"))
+    x = torch.randn(b, cin, h, w, generator=g, device="cuda").to(torch.bfloat16)
+    return block, x.contiguous(memory_format=torch.channels_last)
+
+
+def fused_bound(b, h, w, cin, cm, cout, down):
+    """The least time of one fused block in ms and what sets it: x read and
+    the output written once, the weights read once, against its tensor-core
+    operations. Returns (ms, "bytes" or "operations", bytes, operations)."""
+    pix = b * h * w
+    macs = cin * cm + 9 * cm * cm + cm * cout + (cin * cout if down else 0)
+    ops = 2 * pix * macs
+    moved = pix * (cin + cout) * 2 + macs * 2 + (2 * cm + 2 * cout) * 4
+    t = {"bytes": moved / HBM_BYTES_PER_S * 1e3, "operations": ops / BF16_TC_OPS_PER_S * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by, moved, ops
+
+
+def fused_agreement(out: torch.Tensor, ref: torch.Tensor, small: bool):
+    """The fused kernel's bf16 output against its plain version: (the largest
+    difference in bf16 ulps of max(|ref|, 1) over the output, the share of
+    elements not bitwise equal, whether both are within the limits; a small
+    shape must be bitwise equal)."""
+    _, exp = math.frexp(max(ref.float().abs().max().item(), 1.0))
+    ulps = (out.float() - ref.float()).abs().max().item() / 2.0 ** (exp - 8)
+    unequal = (bits(out) != bits(ref)).float().mean().item()
+    return ulps, unequal, ulps <= FUSED_MAX_ULPS and (
+        unequal == 0.0 if small else unequal < FUSED_UNEQUAL_SHARE)
+
+
+def phase_fused_block_kernel(KF):
+    """The kernel against its plain version (TF32 off); at the ResNet-50
+    shapes also timed beside the plain version, the bound and the unfused
+    cuDNN block. Returns (worst max abs difference, the times of the 13
+    launches of one ResNet-50 forward at batch 16 with their bound, and the
+    per-shape times)."""
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    worst, timings = 0.0, []
+    try:
+        cases = [(RETINA_BATCH, hh, hh, cin, cm, cout, down, n)
+                 for n, hh, cin, cm, cout, down in RESNET50_FUSED_BLOCKS]
+        cases += [(2, 14, 22, 32, 8, 32, True, 0), (2, 16, 24, 32, 8, 32, False, 0),
+                  (2, 16, 24, 32, 8, 32, True, 0)]
+        for i, (b, h, w, cin, cm, cout, down, count) in enumerate(cases):
+            block, x = fused_case(100 + i, b, h, w, cin, cm, down)
+            with torch.inference_mode():
+                args = block.folded()
+                out = KF.fused_bottleneck_cuda(x, *args)
+                ref = KF.fused_bottleneck_reference(x, *args)
+                torch.cuda.synchronize()
+                diff = out.float() - ref.float()
+                err, mean = diff.abs().max().item(), diff.mean().item()
+                ulps, unequal, agrees = fused_agreement(out, ref, small=not count)
+                worst = max(worst, err)
+                line = dict(phase="kernel", name="fused_block",
+                            shape=dict(batch=b, h=h, w=w, cin=cin, cm=cm, cout=cout,
+                                       projection=down),
+                            max_abs_err=err, mean_err=mean,
+                            mean_abs_err=diff.abs().mean().item(), max_ulps=ulps,
+                            not_bitwise_equal_share=unequal,
+                            max_abs_ref=ref.float().abs().max().item())
+                if count:
+                    bound, by, moved, ops = fused_bound(b, h, w, cin, cm, cout, down)
+                    t = dict(count=count, bound_ms=bound, bound_by=by, bytes=moved, operations=ops,
+                             ms=cuda_ms(lambda: KF.fused_bottleneck_cuda(x, *args), 20),
+                             plain_ms=cuda_ms(lambda: KF.fused_bottleneck_reference(x, *args), 3),
+                             library_ms=cuda_ms(lambda: block(x), 20))
+                    timings.append(t)
+                    line.update(t, library="unfused Bottleneck (cuDNN convs, FrozenBN, ReLU, add)",
+                                achieved_tflop_per_s=ops / (t["ms"] * 1e-3) / 1e12)
+                emit(**line)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=FUSED_RTOL, atol=FUSED_ATOL)
+            check(abs(mean) < FUSED_MEAN, f"fused block mean difference {mean} at {cases[i]}")
+            check(agrees, f"fused block {ulps} bf16 ulps off, {unequal} of the elements not "
+                          f"bitwise equal at {cases[i]}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    # a forward's 13 launches, one after another: the sum over the five
+    # shapes of count x each, the bound too; bound_by is what sets the larger
+    # part of that sum
+    per_forward = {key: sum(t["count"] * t[key] for t in timings)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    part = {by: sum(t["count"] * t["bound_ms"] for t in timings if t["bound_by"] == by)
+            for by in ("bytes", "operations")}
+    per_forward["bound_by"] = max(part, key=part.get)
+    return worst, per_forward, timings
+
+
+def phase_retinanet_e2e(PL, P, KN, KF):
+    """Unfused, then fused, on the same weights. Returns (batches, launches
+    by mode)."""
+    from object_detectors_tpu_torch.analysis.frcnn_stages import stage_times
+    from object_detectors_tpu_torch.models.resnet import set_fused
+
+    pipe = PL.build_retinanet_pipeline_uint8(num_classes=RETINA_CLASSES, img_size=IMG,
+                                             device="cuda")
+    rng = np.random.RandomState(1)
+    batches = [torch.from_numpy(rng.randint(0, 255, (RETINA_BATCH, IMG, IMG, 3),
+                                            dtype=np.uint8)).cuda() for _ in range(3)]
+    counters = {"preprocess": P, "nms": KN, "fused_block": KF}
+    iters, launches = 8, {}
+    for mode in ("off", "auto"):
+        set_fused(pipe.model, mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dt, (boxes, scores, labels, valid), launches[mode] = timed_calls(pipe, batches, counters,
+                                                                         iters)
+        det = pipe.cfg.detections_per_img
+        check(tuple(boxes.shape) == (RETINA_BATCH, det, 4)
+              and tuple(valid.shape) == (RETINA_BATCH, det), "retinanet e2e output shape")
+        check(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()),
+              "retinanet e2e output is not finite")
+        need = {"preprocess": 1, "nms": 1, "fused_block": 13 if mode == "auto" else 0}
+        for name, per_call in need.items():
+            check(launches[mode][name] == per_call * iters,
+                  f"retinanet ({mode}) launched the {name} kernel {launches[mode][name]} "
+                  f"times in {iters} calls, not {per_call * iters}")
+        emit(phase="retinanet_e2e", backbone_fused=mode, batch=RETINA_BATCH, img=IMG,
+             num_classes=RETINA_CLASSES, imgs_per_s=RETINA_BATCH / dt, ms_per_batch=dt * 1e3,
+             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             valid_detections=int(valid.sum()), launches=launches[mode],
+             launches_per_call={k: v / iters for k, v in launches[mode].items()})
+        stages = stage_times(pipe, batches, 5)
+        emit(phase="retinanet_stages", backbone_fused=mode, batch=RETINA_BATCH, ms=stages,
+             stage_sum_ms=sum(stages.values()))
+    return batches, launches
+
+
+def phase_frcnn_fused(PL, P, KF, u8):
+    """frcnn640's backbone+FPN alone, unfused and fused, on the same weights
+    and input, and the time the fused path spends folding batch norms."""
+    from object_detectors_tpu_torch.models.resnet import Bottleneck, set_fused
+
+    m = PL.build_frcnn_pipeline_uint8(num_classes=FRCNN_CLASSES, img_size=IMG,
+                                      device="cuda").model
+    with torch.inference_mode():
+        x = P.preprocess_images(u8, torch.bfloat16).permute(0, 3, 1, 2)
+        feats, ms = {}, {}
+        for mode in ("off", "auto"):
+            set_fused(m, mode)
+            KF.launches = 0
+            feats[mode] = m.backbone(x)
+            launches = KF.launches
+            ms[mode] = cuda_ms(lambda: m.backbone(x), 10)
+        check(launches == 13, f"the fused frcnn backbone launched the kernel {launches} times")
+        # the fused path folds every block's batch norms at each call
+        blocks = [blk for blk in m.modules() if isinstance(blk, Bottleneck) and blk.stride == 1]
+        fold_ms = cuda_ms(lambda: [blk.folded() for blk in blocks], 10)
+        check(len(blocks) == launches, "the stride-1 blocks are not the fused ones")
+        for i, (a, b) in enumerate(zip(feats["auto"], feats["off"])):
+            check(bool(torch.isfinite(a).all()), "fused frcnn backbone output is not finite")
+            emit(phase="frcnn_fused", what=f"P{i + 2} fused vs unfused", shape=list(a.shape),
+                 max_abs_diff=(a.float() - b.float()).abs().max().item(),
+                 mean_abs_diff=(a.float() - b.float()).abs().mean().item(),
+                 max_abs_ref=b.float().abs().max().item())
+    result = dict(backbone_fpn_ms_off=ms["off"], backbone_fpn_ms_auto=ms["auto"],
+                  fused_launches_per_forward=launches, fold_ms_per_forward=fold_ms)
+    emit(phase="frcnn_fused", batch=u8.shape[0], **result)
+    return result
+
+
+def live_logits(seed: int, batch: int, anchors: int, classes: int):
+    """Seeded bf16 logits around logit(0.05) = -2.94 (a few percent of the
+    pairs pass, ties everywhere) and bf16 box deltas."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (-4.2 + 0.7 * torch.randn(batch, anchors, classes, generator=g, device="cuda"))
+    reg = 0.2 * torch.randn(batch, anchors, 4, generator=g, device="cuda")
+    return logits.to(torch.bfloat16), reg.to(torch.bfloat16)
+
+
+def phase_retinanet_post(RN, KN, pipe_anchors):
+    """The postprocess on the card and on the CPU on the same live logits;
+    then the NMS kernel alone at its inputs there. Returns the NMS timing."""
+    from object_detectors_tpu_torch.models import anchors as anchor_lib
+
+    cfg = RN.RetinaNetConfig(num_classes=RETINA_CLASSES)
+    level_sizes = tuple(h * w * 9 for h, w in anchor_lib.fpn_grid_sizes((IMG, IMG)))
+    logits, reg = live_logits(5, RETINA_BATCH, sum(level_sizes), RETINA_CLASSES)
+    logit_thr = float(np.log(cfg.score_thresh / (1 - cfg.score_thresh)))
+    passing = (logits.float() > logit_thr).sum(dim=(1, 2))
+    with torch.inference_mode():
+        gpu = RN.retinanet_postprocess(logits, reg, pipe_anchors, level_sizes, (IMG, IMG), cfg)
+        cpu = RN.retinanet_postprocess(logits.cpu(), reg.cpu(), pipe_anchors.cpu(), level_sizes,
+                                       (IMG, IMG), cfg)
+    gpu = [t.cpu() for t in gpu]
+    same = {name: torch.equal(g, c) for name, g, c in
+            zip(("boxes", "scores", "labels", "valid"), gpu, cpu)}
+    emit(phase="retinanet_post", logits=list(logits.shape), dtype=str(logits.dtype),
+         passing_per_image_min=int(passing.min()), passing_per_image_max=int(passing.max()),
+         valid=int(cpu[3].sum()), bitwise_equal=same,
+         boxes_max_abs_diff=(gpu[0] - cpu[0]).abs().max().item(),
+         scores_max_abs_diff=(gpu[1] - cpu[1]).abs().max().item())
+    check(same["labels"] and same["valid"], "retinanet postprocess labels or order differ "
+                                            "between the GPU and the CPU")
+    check(int(cpu[3].sum()) > 0, "retinanet postprocess kept nothing on live logits")
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=0, atol=BOX_ATOL)
+    torch.testing.assert_close(gpu[1], cpu[1], rtol=0, atol=SCORE_ATOL)
+
+    # the NMS kernel alone at the inputs the GPU postprocess gave it
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return greedy_nms_cuda(*args, **kwargs)
+
+    greedy_nms_cuda, KN.greedy_nms_cuda = KN.greedy_nms_cuda, spy
+    try:
+        with torch.inference_mode():
+            RN.retinanet_postprocess(logits, reg, pipe_anchors, level_sizes, (IMG, IMG), cfg)
+    finally:
+        KN.greedy_nms_cuda = greedy_nms_cuda
+    check(len(calls) == 1, f"the postprocess called the NMS kernel {len(calls)} times")
+    (b, s, thr, k, valid), _ = calls[0]
+    check(valid is None, "the postprocess passed the NMS kernel a valid mask")
+    keep, ok = KN.greedy_nms_cuda(b, s, thr, k)
+    check_nms(KN, "RetinaNet postprocess, live logits", b, s, thr, k)
+    ms = cuda_ms(lambda: KN.greedy_nms_cuda(b, s, thr, k), 20)
+    plain_ms = cuda_ms(lambda: KN.greedy_nms_reference(b, s, thr, k), 2)
+    moved = b.numel() * 4 + s.numel() * 4 + keep.numel() * 4 + ok.numel()
+    ious = greedy_iou_count(b, s, keep, ok, thr)
+    bound, bound_by = time_bound(moved, ious * IOU_OPS)
+    emit(phase="kernel_time", name="nms", case="RetinaNet postprocess, live logits",
+         groups=s.shape[0], n=s.shape[1], k=k, kept=int(ok.sum()), bytes=moved, ious=ious,
+         operations=ious * IOU_OPS, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+         bound_by=bound_by, library_ms=None)  # torchvision is not a dependency
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+
+def phase_retinanet_consistency(PL, P, u8):
+    allow = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = dict(num_classes=RETINA_CLASSES, img_size=IMG, dtype=torch.float32)
+        outs = {}
+        with torch.inference_mode():
+            for dev in ("cuda", "cpu"):
+                m = PL.build_retinanet_pipeline_uint8(device=dev, **kw).model
+                outs[dev] = m(P.preprocess_images(u8.to(dev), torch.float32))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    # f32 on both, but cuDNN and the CPU sum the convolutions in other orders
+    for what, g, c in (("cls_logits", outs["cuda"][0], outs["cpu"][0]),
+                       ("bbox_reg", outs["cuda"][1], outs["cpu"][1])):
+        g = g.cpu()
+        emit(phase="retinanet_consistency", what=what, shape=list(c.shape),
+             max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+        torch.testing.assert_close(g, c, rtol=FEAT_RTOL, atol=FEAT_ATOL)
+    check(outs["cuda"][2] == outs["cpu"][2], "level sizes differ between devices")
+
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -483,13 +811,15 @@ def main() -> int:
 
     from object_detectors_tpu_torch import pipeline as PL
     from object_detectors_tpu_torch.kernels import _build
+    from object_detectors_tpu_torch.kernels import fused_block as KF
     from object_detectors_tpu_torch.kernels import nms as KN
     from object_detectors_tpu_torch.kernels import preprocess as P
     from object_detectors_tpu_torch.kernels import roi_align as KR
+    from object_detectors_tpu_torch.models import retinanet as RN
     from object_detectors_tpu_torch.models import rpn as RPN
     from object_detectors_tpu_torch.ops import nms as N
 
-    sources = ("preprocess", "roi_align", "nms")
+    sources = ("preprocess", "roi_align", "nms", "fused_block")
     built = {name: not _build.library_path(name).exists() for name in sources}
     t0 = time.perf_counter()
     seconds = _build.build_all(sources)
@@ -509,14 +839,30 @@ def main() -> int:
     frcnn_batches, frcnn_launches, roi, nms = phase_frcnn_e2e(PL, P, KR, KN, RPN)
     phase_frcnn_consistency(PL, P, KR, KN, RPN, frcnn_batches[0][:1])
 
+    fused_err, fused_per_forward, fused_times = phase_fused_block_kernel(KF)
+    retina_batches, retina_launches = phase_retinanet_e2e(PL, P, KN, KF)
+    frcnn_fused = phase_frcnn_fused(PL, P, KF, frcnn_batches[0])
+    del frcnn_batches
+    anchors = PL.build_retinanet_pipeline_uint8(num_classes=RETINA_CLASSES, img_size=IMG,
+                                                device="cuda").anchors
+    retina_nms = phase_retinanet_post(RN, KN, anchors)
+    phase_retinanet_consistency(PL, P, retina_batches[0][:1])
+
     roi["max_abs_err"] = max(roi["max_abs_err"], roi_err)
+    retina_pre = sum(retina_launches[mode]["preprocess"] for mode in retina_launches)
+    retina_nms_launches = sum(retina_launches[mode]["nms"] for mode in retina_launches)
+    nms["launches"] += retina_nms_launches
+    nms["launches_by_path"] = {"frcnn640": frcnn_launches["nms"],
+                               "retinanet640": retina_nms_launches}
+    nms["retinanet_postprocess_shape"] = retina_nms
     kernels = [{
         "name": "preprocess_u8_bf16", "route": "cuda",
         "source": "object_detectors_tpu_torch/csrc/preprocess.cu",
         "replaces": "object_detectors_tpu/kernels/preprocess.py:33",
-        "launches": timing["launches"] + frcnn_launches["preprocess"],
+        "launches": timing["launches"] + frcnn_launches["preprocess"] + retina_pre,
         "launches_by_path": {"yolo640": timing["launches"],
-                             "frcnn640": frcnn_launches["preprocess"]},
+                             "frcnn640": frcnn_launches["preprocess"],
+                             "retinanet640": retina_pre},
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -534,6 +880,21 @@ def main() -> int:
         "replaces": "object_detectors_tpu/kernels/nms_pallas.py:94",
         **nms,
         "library_ms": None,  # no single PyTorch call; torchvision is not a dependency
+    }, {
+        "name": "fused_bottleneck", "route": "cuda",
+        "source": "object_detectors_tpu_torch/csrc/fused_block.cu",
+        "replaces": "object_detectors_tpu/kernels/fused_block.py:180",
+        "launches": retina_launches["auto"]["fused_block"],
+        "launches_by_path": {"retinanet640 (backbone_fused=auto)":
+                             retina_launches["auto"]["fused_block"],
+                             "frcnn640 backbone (backbone_fused=auto)":
+                             frcnn_fused["fused_launches_per_forward"]},
+        "max_abs_err": fused_err,
+        **fused_per_forward,
+        "per_shape": fused_times,
+        "frcnn640_backbone": frcnn_fused,
+        # library_ms: the unfused cuDNN Bottleneck at the same shapes (no
+        # single PyTorch call computes a whole block)
     }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

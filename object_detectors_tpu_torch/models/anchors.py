@@ -51,9 +51,36 @@ def grid_anchors(
     return np.concatenate(out, axis=0).astype(np.float32)
 
 
+def fpn_grid_sizes(image_size: tuple[int, int],
+                   num_levels: int = 5) -> list[tuple[int, int]]:
+    """Per-level feature (H_l, W_l) for the ResNet-FPN pyramid starting at
+    stride 8 (RetinaNet P3..P7), as the conv chain computes them: every
+    stride-2 op is a halving that rounds up, out = ceil(in / 2) (not
+    ``image_size // stride``: at 320 the P7 map is 3x3)."""
+    h, w = image_size
+    for _ in range(3):
+        h, w = -(-h // 2), -(-w // 2)
+    out = []
+    for _ in range(num_levels):
+        out.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    return out
+
+
 def rpn_anchor_config():
     """Faster/Mask R-CNN FPN RPN: one size per level x 3 aspect ratios
     (frcnn.py:302-320)."""
     sizes = ((32,), (64,), (128,), (256,), (512,))
+    aspect_ratios = ((0.5, 1.0, 2.0),) * 5
+    return sizes, aspect_ratios
+
+
+def retinanet_anchor_config():
+    """RetinaNet: 3 octave scales per level x 3 aspect ratios
+    (retinanet.py:629-633)."""
+    sizes = tuple(
+        tuple(int(x * 2 ** (i / 3)) for i in range(3))
+        for x in [32, 64, 128, 256, 512]
+    )
     aspect_ratios = ((0.5, 1.0, 2.0),) * 5
     return sizes, aspect_ratios

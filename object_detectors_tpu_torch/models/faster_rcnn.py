@@ -28,6 +28,7 @@ class FasterRCNNConfig:
     rpn: RPNConfig = RPNConfig()
     roi: RoIHeadsConfig = RoIHeadsConfig()
     resnet_layers: tuple = (3, 4, 6, 3)
+    backbone_fused: str = "off"  # fused eval bottlenecks (models/resnet.py)
 
 
 class FasterRCNN(nn.Module):
@@ -40,7 +41,7 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         oh, ow = cfg.roi.pool_size
-        self.backbone = BackboneWithFPN(ResNet(cfg.resnet_layers), 256)
+        self.backbone = BackboneWithFPN(ResNet(cfg.resnet_layers, fused=cfg.backbone_fused), 256)
         self.rpn_head = RPNHead(256, 3)
         self.box_head = TwoMLPHead(256 * oh * ow, 1024)
         self.box_predictor = FastRCNNPredictor(1024, cfg.num_classes)
@@ -58,8 +59,10 @@ class FasterRCNN(nn.Module):
                 image_size, grids, sizes[:len(grids)], ratios[:len(grids)])).to(deltas.device)
         return decode_boxes(deltas.float(), self._anchors[key][None], self.cfg.rpn.box_weights)
 
-    def forward(self, images: torch.Tensor, train: bool = False, on_stage=None):
-        """``on_stage(name)``, when given, is called after each stage."""
+    def forward(self, images: torch.Tensor, train: bool = False, tfidf=None, on_stage=None):
+        """``tfidf``: optional [num_classes] logit scale of the postprocess
+        (the JAX ``tfidf_post``). ``on_stage(name)``, when given, is called
+        after each stage."""
         if train:
             raise NotImplementedError("Faster R-CNN training is not ported yet")
         mark = on_stage or (lambda name: None)
@@ -79,7 +82,8 @@ class FasterRCNN(nn.Module):
         class_logits, box_regression = self.box_predictor(self.box_head(pooled))
         mark("box head")
         out = postprocess_detections(class_logits.float(), box_regression.float(), boxes,
-                                     valid, (h, w), cfg.roi)
+                                     valid, (h, w), cfg.roi,
+                                     tfidf_post=1.0 if tfidf is None else tfidf)
         mark("postprocess")
         return out
 

@@ -1,9 +1,12 @@
-"""Feature Pyramid Network with the ``pool`` extra block (port of the JAX
-package's ``models/fpn.py``, torchvision FeaturePyramidNetwork semantics):
-per-level 1x1 inner convs to a common width, a top-down pathway of nearest
-upsampling + add, per-level 3x3 output convs, and P6 as P5 subsampled by 2
-(LastLevelMaxPool: a 1x1 max pool with stride 2). Submodule names follow
-the Flax module names (``inner{i}``, ``layer{i}``).
+"""Feature Pyramid Network (port of the JAX package's ``models/fpn.py``,
+torchvision FeaturePyramidNetwork semantics): per-level 1x1 inner convs to a
+common width, a top-down pathway of nearest upsampling + add, per-level 3x3
+output convs, and an extra block: ``pool`` (Faster R-CNN) appends P6 as P5
+subsampled by 2 (LastLevelMaxPool: a 1x1 max pool with stride 2); ``p6p7``
+(RetinaNet, LastLevelP6P7 fed from P5) appends P6 = 3x3/s2 conv of P5 and
+P7 = 3x3/s2 conv of relu(P6), both with padding 1. The C5-fed variant of
+``p6p7`` is not ported. Submodule names follow the Flax module names
+(``inner{i}``, ``layer{i}``, ``p6``, ``p7``).
 """
 
 from __future__ import annotations
@@ -32,12 +35,12 @@ def upsample_nearest_to(x: torch.Tensor, size) -> torch.Tensor:
 
 class FeaturePyramidNetwork(nn.Module):
     """in: NCHW maps fine -> coarse; out: the same number of maps at
-    ``out_channels`` width, plus P6 when ``extra_blocks == "pool"``."""
+    ``out_channels`` width, plus P6 (``pool``) or P6 and P7 (``p6p7``)."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
                  extra_blocks: str | None = "pool"):
         super().__init__()
-        if extra_blocks not in (None, "pool"):
+        if extra_blocks not in (None, "pool", "p6p7"):
             raise ValueError(f"extra block {extra_blocks!r} is not ported")
         self.extra_blocks = extra_blocks
         self.num_levels = len(in_channels)
@@ -45,6 +48,9 @@ class FeaturePyramidNetwork(nn.Module):
             self.add_module(f"inner{i}", nn.Conv2d(c, out_channels, 1))
             self.add_module(f"layer{i}", nn.Conv2d(out_channels, out_channels, 3,
                                                    padding=1))
+        if extra_blocks == "p6p7":
+            self.p6 = nn.Conv2d(out_channels, out_channels, 3, 2, padding=1)
+            self.p7 = nn.Conv2d(out_channels, out_channels, 3, 2, padding=1)
 
     def forward(self, features: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         inners = [conv2d(f, getattr(self, f"inner{i}")) for i, f in enumerate(features)]
@@ -56,4 +62,7 @@ class FeaturePyramidNetwork(nn.Module):
         outs = [conv2d(x, getattr(self, f"layer{i}")) for i, x in enumerate(laterals)]
         if self.extra_blocks == "pool":
             outs.append(outs[-1][:, :, ::2, ::2])
+        elif self.extra_blocks == "p6p7":
+            p6 = conv2d(outs[-1], self.p6)
+            outs += [p6, conv2d(F.relu(p6), self.p7)]
         return outs

@@ -8,6 +8,13 @@ phase-split layout for the TPU, which is not ported. Submodule names follow
 the Flax module names (``conv1``, ``bn1``, ``layer{s}_block{i}`` with
 ``conv1..3``, ``bn1..3``, ``down_conv``, ``down_bn``; ``resnet`` and
 ``fpn`` under the backbone), so converted weights load by path.
+
+``fused`` ("off", "auto", "interpret") is the JAX knob of the same name: a
+stride-1 block in eval with a bf16 input of even height runs as one fused
+bottleneck (``kernels/fused_block.py``) with the batch norm folded into its
+weights at each call. "auto" takes the CUDA kernel for a CUDA tensor and the
+unfused path on the CPU, as the JAX "auto" fires only on its accelerator;
+"interpret" takes the kernel's plain version on any device.
 """
 
 from __future__ import annotations
@@ -18,16 +25,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_detectors_tpu_torch.kernels.fused_block import (
+    fold_bn, fused_bottleneck, fused_bottleneck_reference,
+)
 from object_detectors_tpu_torch.models.common import FrozenBatchNorm, conv2d
 from object_detectors_tpu_torch.models.fpn import FeaturePyramidNetwork
+
+FUSED_MODES = ("off", "auto", "interpret")
 
 
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, fused: str = "off"):
         super().__init__()
+        if fused not in FUSED_MODES:
+            raise ValueError(f"fused must be one of {FUSED_MODES}, got {fused!r}")
+        self.fused = fused
+        self.stride = stride
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(in_features, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm(planes)
@@ -40,7 +56,30 @@ class Bottleneck(nn.Module):
             self.down_conv = nn.Conv2d(in_features, out, 1, stride, bias=False)
             self.down_bn = FrozenBatchNorm(out)
 
+    def uses_fused(self, x: torch.Tensor) -> bool:
+        """The JAX gate: eval, stride 1, bf16 input, even height; "auto"
+        only on a CUDA tensor."""
+        return (self.fused != "off" and not self.training and self.stride == 1
+                and x.dtype == torch.bfloat16 and x.shape[2] % 2 == 0
+                and (self.fused == "interpret" or x.is_cuda))
+
+    def folded(self):
+        """(w1, b1, w2, b2, w3, b3, wd, bd): the convolutions with their
+        batch norms folded in (``fold_bn``); wd and bd are None without a
+        projection."""
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
+        if self.downsample:
+            pairs.append((self.down_conv, self.down_bn))
+        out = [t for conv, bn in pairs
+               for t in fold_bn(conv.weight, dict(bn.named_buffers()), bn.eps)]
+        if not self.downsample:
+            out += [None, None]
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.uses_fused(x):
+            fn = fused_bottleneck_reference if self.fused == "interpret" else fused_bottleneck
+            return fn(x, *self.folded())
         out = F.relu(self.bn1(conv2d(x, self.conv1)))
         out = F.relu(self.bn2(conv2d(out, self.conv2)))
         out = self.bn3(conv2d(out, self.conv3))
@@ -52,7 +91,7 @@ class ResNet(nn.Module):
     """Bottleneck ResNet; ``layers`` (3, 4, 6, 3) is ResNet-50. Returns
     (C2, C3, C4, C5)."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), fused: str = "off"):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -62,7 +101,8 @@ class ResNet(nn.Module):
             stride = 1 if stage == 0 else 2
             for i in range(blocks):
                 self.add_module(f"layer{stage + 1}_block{i}", Bottleneck(
-                    in_features, planes, stride if i == 0 else 1, downsample=i == 0))
+                    in_features, planes, stride if i == 0 else 1, downsample=i == 0,
+                    fused=fused))
                 in_features = planes * Bottleneck.expansion
             self.out_channels.append(in_features)
             planes *= 2
@@ -79,13 +119,30 @@ class ResNet(nn.Module):
         return tuple(feats)
 
 
-class BackboneWithFPN(nn.Module):
-    """ResNet -> FPN over C2..C5 with the pool extra block: P2..P6."""
+def set_fused(module: nn.Module, mode: str) -> None:
+    """Set the ``fused`` mode of every Bottleneck under ``module``."""
+    if mode not in FUSED_MODES:
+        raise ValueError(f"fused must be one of {FUSED_MODES}, got {mode!r}")
+    for m in module.modules():
+        if isinstance(m, Bottleneck):
+            m.fused = mode
 
-    def __init__(self, resnet: ResNet, out_channels: int = 256):
+
+class BackboneWithFPN(nn.Module):
+    """ResNet -> FPN over ``returned_layers`` (1-based stages): with the
+    ``pool`` extra block over C2..C5 (P2..P6, Faster R-CNN), with ``p6p7``
+    over C3..C5 (P3..P7, RetinaNet), unless given."""
+
+    def __init__(self, resnet: ResNet, out_channels: int = 256, extra_blocks: str = "pool",
+                 returned_layers: Sequence[int] | None = None):
         super().__init__()
         self.resnet = resnet
-        self.fpn = FeaturePyramidNetwork(resnet.out_channels, out_channels, "pool")
+        self.returned_layers = tuple(returned_layers or (
+            (1, 2, 3, 4) if extra_blocks == "pool" else (2, 3, 4)))
+        self.fpn = FeaturePyramidNetwork(
+            [resnet.out_channels[i - 1] for i in self.returned_layers], out_channels,
+            extra_blocks)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        return self.fpn(self.resnet(x))
+        feats = self.resnet(x)
+        return self.fpn([feats[i - 1] for i in self.returned_layers])

@@ -10,6 +10,11 @@ majority-vote NMS. The uint8 variant puts the normalize kernel in front.
 
 Faster R-CNN: port of the ``frcnn640`` graph of ``bench.py:run_frcnn``
 (91 classes, 640², bf16): the normalize kernel, then ``FasterRCNN``.
+
+RetinaNet: port of ``serve.py:build_retinanet_pipeline(uint8_input=True)``,
+the ``retinanet640`` graph of ``bench.py:run_retinanet`` (91 classes, 640²,
+bf16): the normalize kernel, ``RetinaNet``, then ``retinanet_postprocess``
+with the default tfidf of 1.0 against anchors made once for the image size.
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ import torch
 
 from object_detectors_tpu_torch._device import resolve_device
 from object_detectors_tpu_torch.kernels.preprocess import preprocess_images
+from object_detectors_tpu_torch.models import anchors as anchor_lib
 from object_detectors_tpu_torch.models import yolo_criterion as YC
 from object_detectors_tpu_torch.models.faster_rcnn import (
     FasterRCNN, FasterRCNNConfig, init_frcnn_,
+)
+from object_detectors_tpu_torch.models.retinanet import (
+    RetinaNet, RetinaNetConfig, init_retinanet_, retinanet_postprocess,
 )
 from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
 from object_detectors_tpu_torch.ops.nms import exact_blocked_topk, gather_rows, nms_majority
@@ -175,3 +184,56 @@ def build_frcnn_pipeline_uint8(num_classes: int = 91, img_size: int = 640,
         model = copy.deepcopy(model)
     model.dtype = dtype
     return FrcnnPipeline(model.to(dev).eval(), dtype, img_size)
+
+
+class RetinanetPipeline:
+    """Callable uint8 RetinaNet graph around one ``RetinaNet`` on one device:
+    ``preprocess_images``, the model, ``retinanet_postprocess``."""
+
+    def __init__(self, model: RetinaNet, dtype: torch.dtype, img_size: int, device):
+        self.model = model
+        self.dtype = dtype
+        self.img_size = img_size
+        self.cfg = RetinaNetConfig(num_classes=model.head.num_classes)
+        s = (img_size, img_size)
+        sizes, ratios = anchor_lib.retinanet_anchor_config()
+        self.anchors = torch.from_numpy(anchor_lib.grid_anchors(
+            s, anchor_lib.fpn_grid_sizes(s), sizes, ratios)).to(device)
+
+    @torch.inference_mode()
+    def __call__(self, images: torch.Tensor, on_stage=None):
+        """uint8 [B, img_size, img_size, 3] -> (boxes [B, 300, 4], scores,
+        labels 0-based (-1 where not valid), valid). ``on_stage(name)``, when
+        given, is called after each stage: normalize, backbone+FPN, head,
+        select, cap+decode, NMS."""
+        if tuple(images.shape[1:]) != (self.img_size, self.img_size, 3):
+            raise ValueError(f"expected [B, {self.img_size}, {self.img_size}, 3] images, "
+                             f"got {tuple(images.shape)}")
+        x = preprocess_images(images, self.dtype)
+        if on_stage is not None:
+            on_stage("normalize")
+        cls, reg, level_sizes = self.model(x, on_stage=on_stage)
+        if sum(level_sizes) != self.anchors.shape[0]:
+            raise ValueError(f"the head gave {sum(level_sizes)} anchors, the grid "
+                             f"{self.anchors.shape[0]}")
+        return retinanet_postprocess(cls, reg, self.anchors, level_sizes,
+                                     (self.img_size, self.img_size), self.cfg,
+                                     on_stage=on_stage)
+
+
+def build_retinanet_pipeline_uint8(num_classes: int = 91, img_size: int = 640,
+                                   dtype: torch.dtype = torch.bfloat16,
+                                   device: str | torch.device = "cuda",
+                                   model: RetinaNet | None = None) -> RetinanetPipeline:
+    """The ``retinanet640`` graph. Without ``model``, a ResNet-50-FPN
+    ``RetinaNet`` of ``num_classes`` gets the seeded random init (seed 0),
+    backbone unfused; a given model is copied, so the caller's stays on its
+    device and dtype, and the copy runs its parameters as they are with
+    activations in ``dtype``."""
+    dev = resolve_device(device)
+    if model is None:
+        model = init_retinanet_(RetinaNet(num_classes))
+    else:
+        model = copy.deepcopy(model)
+    model.dtype = dtype
+    return RetinanetPipeline(model.to(dev).eval(), dtype, img_size, dev)

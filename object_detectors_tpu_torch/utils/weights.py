@@ -6,8 +6,9 @@ module names, so each leaf maps by its path: conv ``kernel`` HWIO ->
 ``weight`` OIHW, Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in],
 ``bias`` -> ``bias``; for YOLO, batch norm ``scale`` / ``bias`` ->
 ``weight`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` ->
-``running_mean`` / ``running_var``; for Faster R-CNN, the ``frozen``
-collection's leaves are the FrozenBatchNorm buffers of the same names.
+``running_mean`` / ``running_var``; for Faster R-CNN and RetinaNet, the
+``frozen`` collection's leaves are the FrozenBatchNorm buffers of the same
+names.
 """
 
 from __future__ import annotations
@@ -54,6 +55,19 @@ def flax_frcnn_to_torch(params, frozen) -> dict[str, torch.Tensor]:
     """Flax ``FasterRCNN`` variables -> a state dict for
     ``models.faster_rcnn.FasterRCNN`` (the ``fc6`` input is already in the
     port's (y, x, c) order, so it needs no permutation)."""
+    return _flax_frozen_bn_to_torch(params, frozen)
+
+
+def flax_retinanet_to_torch(params, frozen) -> dict[str, torch.Tensor]:
+    """Flax ``RetinaNet`` variables (the head's unpacked parameter tree, which
+    the packed head shares) -> a state dict for
+    ``models.retinanet.RetinaNet``."""
+    return _flax_frozen_bn_to_torch(params, frozen)
+
+
+def _flax_frozen_bn_to_torch(params, frozen) -> dict[str, torch.Tensor]:
+    """Convs and dense layers by path; the ``frozen`` collection's leaves are
+    the FrozenBatchNorm buffers of the same names."""
     state = {}
     for path, value in _leaves(params):
         *mod, leaf = path

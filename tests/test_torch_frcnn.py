@@ -286,6 +286,19 @@ def test_frcnn_eval_matches_jax(tiny):
     assert kept(0.5) < kept(1.0)  # NMS dropped some
 
 
+def test_frcnn_eval_tfidf_vector_matches_jax(tiny):
+    """``tfidf`` reaches the postprocess as ``tfidf_post``, as in JAX."""
+    cfg, model, v, port, x = tiny
+    vec = np.random.RandomState(11).uniform(0.3, 3.0, NUM_CLASSES).astype(np.float32)
+    ref = model.apply(v, jnp.asarray(x), train=False, tfidf=jnp.asarray(vec))
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), tfidf=torch.from_numpy(vec))
+        plain = port(torch.from_numpy(x))
+    _assert_detections_equal(out, ref)
+    assert out[3].sum() > 0
+    assert not all(torch.equal(a, b) for a, b in zip(out, plain))  # the vector mattered
+
+
 def test_frcnn_stages_are_reported_in_order(tiny):
     *_, port, x = tiny
     seen = []

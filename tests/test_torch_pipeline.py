@@ -96,3 +96,15 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|object_detectors_
 def test_port_imports_nothing_of_jax(path):
     source = (ROOT / path).read_text()
     assert not FORBIDDEN.search(source), f"{path} imports JAX or the JAX package"
+
+
+def test_chip_smoke_runs_yolo640_at_the_bench_batch():
+    """The yolo640 row of bench.py's default run is batch 128; chip_smoke's
+    yolo640 e2e phase runs at that batch."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert re.search(r"^\s+sizes = \(128,\)$", (ROOT / "bench.py").read_text(), re.MULTILINE)
+    assert smoke.BATCH == 128 and (smoke.IMG, smoke.NUM_CLASSES) == (640, 80)
