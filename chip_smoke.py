@@ -40,18 +40,25 @@ Phases, each printed as JSON lines:
    per-level candidates.
 9. kernel (fused_block): the fused bottleneck kernel against its plain
    version (TF32 off) at the five ResNet-50 block shapes of a 640² batch of
-   16, an odd shape and a tiny one with and without the projection, within
-   the JAX test's tolerance and within one bf16 ulp of max(|plain|, 1), with
-   a bounded share of elements not bitwise equal at the five shapes and
-   none at the small ones; at the five shapes, its time beside the plain
-   version's, the bound and the unfused cuDNN block's.
+   16 and at odd shapes of both variants (v4: TMA + wgmma, for channels
+   that are multiples of 64; v2: mma.sync, for the tests' tiny blocks), with
+   and without the projection, within the JAX test's tolerance and within
+   one bf16 ulp of max(|plain|, 1), with a bounded share of elements not
+   bitwise equal and none at v2's tiny shapes; each line names the variant,
+   its cluster size, tile and grid. At the five shapes, on a block prepared
+   once (folded weights in the kernel's layout), its time beside the plain
+   version's, the bound, the unfused cuDNN block's, the TFLOP/s and the
+   weight bytes the design moves from L2 a launch.
 10. retinanet_e2e: full-width RetinaNet R50-FPN (91 classes, 640², bf16,
    seeded random weights) through ``build_retinanet_pipeline_uint8`` at
    batch 16, timed as frcnn_e2e, with the backbone unfused and then fused
    (``backbone_fused="auto"``: 13 kernel launches a call); every kernel's
    launch count is set to 0 before each timed run and read after.
 11. frcnn_fused: frcnn640's backbone+FPN alone with the backbone unfused and
-   fused.
+   fused, and the batch-norm fold: cold (caches emptied: fold, kernel
+   layout, TMA descriptors of the 13 blocks, device time) and warm (a
+   forward that finds every block's cache: folds counted, device work traced,
+   and the host time of the cache check).
 12. retinanet_post: the postprocess on seeded live bf16 logits [16, 76725,
    91] around the score threshold, on the GPU and on the CPU: labels, valid
    and order identical, boxes and scores within the stated tolerance; the
@@ -586,39 +593,51 @@ def phase_fused_block_kernel(KF):
     per-shape times)."""
     allow = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst, timings = 0.0, []
     try:
-        cases = [(RETINA_BATCH, hh, hh, cin, cm, cout, down, n)
+        # (batch, H, W, Cin, Cm, Cout, projection, launches a forward, variant)
+        cases = [(RETINA_BATCH, hh, hh, cin, cm, cout, down, n, 4)
                  for n, hh, cin, cm, cout, down in RESNET50_FUSED_BLOCKS]
-        cases += [(2, 14, 22, 32, 8, 32, True, 0), (2, 16, 24, 32, 8, 32, False, 0),
-                  (2, 16, 24, 32, 8, 32, True, 0)]
-        for i, (b, h, w, cin, cm, cout, down, count) in enumerate(cases):
+        cases += [(3, 19, 23, 128, 128, 512, True, 0, 4), (1, 13, 7, 2048, 512, 2048, False, 0, 4),
+                  (2, 14, 22, 32, 8, 32, True, 0, 2), (2, 16, 24, 32, 8, 32, False, 0, 2),
+                  (2, 16, 24, 32, 8, 32, True, 0, 2)]
+        for i, (b, h, w, cin, cm, cout, down, count, variant) in enumerate(cases):
             block, x = fused_case(100 + i, b, h, w, cin, cm, down)
+            cfg = KF.launch_config(b, h, w, cin, cm, cout)
+            check(cfg["variant"] == variant, f"the fused block took variant {cfg['variant']} at "
+                                             f"{cases[i]}, not {variant}")
             with torch.inference_mode():
-                args = block.folded()
-                out = KF.fused_bottleneck_cuda(x, *args)
+                prepared = block.prepared()
+                args = prepared.folded
+                out = KF.fused_block_cuda(x, prepared)
                 ref = KF.fused_bottleneck_reference(x, *args)
                 torch.cuda.synchronize()
                 diff = out.float() - ref.float()
                 err, mean = diff.abs().max().item(), diff.mean().item()
-                ulps, unequal, agrees = fused_agreement(out, ref, small=not count)
+                ulps, unequal, agrees = fused_agreement(out, ref, small=variant == 2)
                 worst = max(worst, err)
                 line = dict(phase="kernel", name="fused_block",
                             shape=dict(batch=b, h=h, w=w, cin=cin, cm=cm, cout=cout,
                                        projection=down),
+                            **cfg, waves=cfg["ctas"] / (sms * cfg["ctas_per_sm"]),
                             max_abs_err=err, mean_err=mean,
                             mean_abs_err=diff.abs().mean().item(), max_ulps=ulps,
                             not_bitwise_equal_share=unequal,
                             max_abs_ref=ref.float().abs().max().item())
                 if count:
                     bound, by, moved, ops = fused_bound(b, h, w, cin, cm, cout, down)
-                    t = dict(count=count, bound_ms=bound, bound_by=by, bytes=moved, operations=ops,
-                             ms=cuda_ms(lambda: KF.fused_bottleneck_cuda(x, *args), 20),
+                    weights = cin * cm + 9 * cm * cm + cm * cout + (cin * cout if down else 0)
+                    t = dict(count=count, variant=cfg["variant"], cluster=cfg["cluster"],
+                             tile=[cfg["tile_h"], cfg["tile_w"]], ctas=cfg["ctas"],
+                             l2_weight_bytes=cfg["ctas"] * weights * 2,
+                             bound_ms=bound, bound_by=by, bytes=moved, operations=ops,
+                             ms=cuda_ms(lambda: KF.fused_block_cuda(x, prepared), 20),
                              plain_ms=cuda_ms(lambda: KF.fused_bottleneck_reference(x, *args), 3),
                              library_ms=cuda_ms(lambda: block(x), 20))
+                    t["tflop_per_s"] = ops / (t["ms"] * 1e-3) / 1e12
                     timings.append(t)
-                    line.update(t, library="unfused Bottleneck (cuDNN convs, FrozenBN, ReLU, add)",
-                                achieved_tflop_per_s=ops / (t["ms"] * 1e-3) / 1e12)
+                    line.update(t, library="unfused Bottleneck (cuDNN convs, FrozenBN, ReLU, add)")
                 emit(**line)
             torch.testing.assert_close(out.float(), ref.float(), rtol=FUSED_RTOL, atol=FUSED_ATOL)
             check(abs(mean) < FUSED_MEAN, f"fused block mean difference {mean} at {cases[i]}")
@@ -679,25 +698,60 @@ def phase_retinanet_e2e(PL, P, KN, KF):
 
 def phase_frcnn_fused(PL, P, KF, u8):
     """frcnn640's backbone+FPN alone, unfused and fused, on the same weights
-    and input, and the time the fused path spends folding batch norms."""
-    from object_detectors_tpu_torch.models.resnet import Bottleneck, set_fused
+    and input, and the batch-norm fold: cold (every block's cache emptied:
+    fold, kernel layout and TMA descriptors again) and warm (what a forward
+    spends on it once the caches are built: nothing)."""
+    from object_detectors_tpu_torch.models import resnet as R
 
     m = PL.build_frcnn_pipeline_uint8(num_classes=FRCNN_CLASSES, img_size=IMG,
                                       device="cuda").model
+    blocks = [blk for blk in m.modules() if isinstance(blk, R.Bottleneck) and blk.stride == 1]
+
+    def cold_fold():
+        for blk in blocks:
+            blk._prepared = None
+            blk.prepared().operands()
+
     with torch.inference_mode():
         x = P.preprocess_images(u8, torch.bfloat16).permute(0, 3, 1, 2)
         feats, ms = {}, {}
         for mode in ("off", "auto"):
-            set_fused(m, mode)
+            R.set_fused(m, mode)
             KF.launches = 0
             feats[mode] = m.backbone(x)
             launches = KF.launches
             ms[mode] = cuda_ms(lambda: m.backbone(x), 10)
         check(launches == 13, f"the fused frcnn backbone launched the kernel {launches} times")
-        # the fused path folds every block's batch norms at each call
-        blocks = [blk for blk in m.modules() if isinstance(blk, Bottleneck) and blk.stride == 1]
-        fold_ms = cuda_ms(lambda: [blk.folded() for blk in blocks], 10)
         check(len(blocks) == launches, "the stride-1 blocks are not the fused ones")
+        fold_cold = cuda_ms(cold_fold, 10)
+        # a warm forward: the blocks' caches are built; count the folds and
+        # the bundles it makes
+        cached = [blk.prepared() for blk in blocks]
+        folds, fold_bn = [], R.fold_bn
+        R.fold_bn = lambda *a, **k: folds.append(1) or fold_bn(*a, **k)
+        try:
+            warm = m.backbone(x)
+        finally:
+            R.fold_bn = fold_bn
+        check(folds == [] and all(blk.prepared() is c for blk, c in zip(blocks, cached)),
+              f"a warm fused forward folded {len(folds)} batch norms")
+        check(all(torch.equal(a, b) for a, b in zip(warm, feats["auto"])),
+              "a warm fused forward differs from the first")
+        # what a warm forward spends on the fold: the device work of every
+        # block's cache lookup (none expected), traced, and its host time
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for blk in blocks:
+                blk.prepared()
+            torch.cuda.synchronize()
+        warm_kernels = [e for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+        fold_warm = sum(e.device_time for e in warm_kernels) / 1e3
+        check(not warm_kernels, f"a warm cache lookup ran {len(warm_kernels)} kernels")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            for blk in blocks:
+                blk.prepared()
+        check_host_ms = (time.perf_counter() - t0) / 10 * 1e3
         for i, (a, b) in enumerate(zip(feats["auto"], feats["off"])):
             check(bool(torch.isfinite(a).all()), "fused frcnn backbone output is not finite")
             emit(phase="frcnn_fused", what=f"P{i + 2} fused vs unfused", shape=list(a.shape),
@@ -705,7 +759,9 @@ def phase_frcnn_fused(PL, P, KF, u8):
                  mean_abs_diff=(a.float() - b.float()).abs().mean().item(),
                  max_abs_ref=b.float().abs().max().item())
     result = dict(backbone_fpn_ms_off=ms["off"], backbone_fpn_ms_auto=ms["auto"],
-                  fused_launches_per_forward=launches, fold_ms_per_forward=fold_ms)
+                  fused_launches_per_forward=launches, fold_ms_cold=fold_cold,
+                  fold_ms_warm=fold_warm, fold_launches_warm=len(warm_kernels),
+                  folds_in_a_warm_forward=len(folds), cache_check_host_ms=check_host_ms)
     emit(phase="frcnn_fused", batch=u8.shape[0], **result)
     return result
 

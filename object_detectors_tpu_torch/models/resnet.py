@@ -12,7 +12,11 @@ the Flax module names (``conv1``, ``bn1``, ``layer{s}_block{i}`` with
 ``fused`` ("off", "auto", "interpret") is the JAX knob of the same name: a
 stride-1 block in eval with a bf16 input of even height runs as one fused
 bottleneck (``kernels/fused_block.py``) with the batch norm folded into its
-weights at each call. "auto" takes the CUDA kernel for a CUDA tensor and the
+weights once per parameter version: the folded weights, in the kernel's
+layout with their TMA descriptors once a CUDA launch has needed them, are
+cached on the block and rebuilt when a convolution weight or a FrozenBN
+buffer is replaced, moved or changed in place (the JAX module folds inside
+its traced call). "auto" takes the CUDA kernel for a CUDA tensor and the
 unfused path on the CPU, as the JAX "auto" fires only on its accelerator;
 "interpret" takes the kernel's plain version on any device.
 """
@@ -26,12 +30,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from object_detectors_tpu_torch.kernels.fused_block import (
-    fold_bn, fused_bottleneck, fused_bottleneck_reference,
+    PreparedBlock, fold_bn, fused_block_cuda, fused_bottleneck_reference,
 )
 from object_detectors_tpu_torch.models.common import FrozenBatchNorm, conv2d
 from object_detectors_tpu_torch.models.fpn import FeaturePyramidNetwork
 
 FUSED_MODES = ("off", "auto", "interpret")
+
+
+def _version(t: torch.Tensor) -> int:
+    """The tensor's version counter; an inference tensor has none, and can
+    change in place only inside inference mode."""
+    try:
+        return t._version
+    except RuntimeError:
+        return -1
 
 
 class Bottleneck(nn.Module):
@@ -55,6 +68,7 @@ class Bottleneck(nn.Module):
         if downsample:
             self.down_conv = nn.Conv2d(in_features, out, 1, stride, bias=False)
             self.down_bn = FrozenBatchNorm(out)
+        self._prepared = None  # (key, PreparedBlock): see prepared()
 
     def uses_fused(self, x: torch.Tensor) -> bool:
         """The JAX gate: eval, stride 1, bf16 input, even height; "auto"
@@ -63,23 +77,47 @@ class Bottleneck(nn.Module):
                 and x.dtype == torch.bfloat16 and x.shape[2] % 2 == 0
                 and (self.fused == "interpret" or x.is_cuda))
 
-    def folded(self):
-        """(w1, b1, w2, b2, w3, b3, wd, bd): the convolutions with their
-        batch norms folded in (``fold_bn``); wd and bd are None without a
-        projection."""
+    def _folded_pairs(self):
         pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
         if self.downsample:
             pairs.append((self.down_conv, self.down_bn))
-        out = [t for conv, bn in pairs
-               for t in fold_bn(conv.weight, dict(bn.named_buffers()), bn.eps)]
-        if not self.downsample:
-            out += [None, None]
-        return out
+        return pairs
+
+    def _fold_key(self):
+        """Identity and version of every tensor the fold reads: a new tensor
+        (``.to()``, ``.cuda()``, assignment) changes its pointer, device or
+        dtype, an in-place change (``load_state_dict``, ``copy_``) its
+        version."""
+        key = []
+        for conv, bn in self._folded_pairs():
+            for t in (conv.weight, *bn._buffers.values()):
+                key += (t.data_ptr(), _version(t), t.device, t.dtype)
+        return key
+
+    def prepared(self) -> PreparedBlock:
+        """The folded weights (``fold_bn``), built once per parameter version
+        and kept with their kernel layout."""
+        key = self._fold_key()
+        if self._prepared is None or self._prepared[0] != key:
+            # plain tensors, whatever the caller's mode: a bundle built inside
+            # inference_mode serves later calls outside it
+            with torch.inference_mode(False), torch.no_grad():
+                out = [t.detach() for conv, bn in self._folded_pairs()
+                       for t in fold_bn(conv.weight, dict(bn.named_buffers()), bn.eps)]
+            self._prepared = (key, PreparedBlock(*out))
+        return self._prepared[1]
+
+    def folded(self):
+        """(w1, b1, w2, b2, w3, b3, wd, bd): the convolutions with their
+        batch norms folded in (``fold_bn``), from the cache of
+        ``prepared()``; wd and bd are None without a projection."""
+        return list(self.prepared().folded)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_fused(x):
-            fn = fused_bottleneck_reference if self.fused == "interpret" else fused_bottleneck
-            return fn(x, *self.folded())
+            if self.fused == "interpret":
+                return fused_bottleneck_reference(x, *self.folded())
+            return fused_block_cuda(x, self.prepared())  # "auto" fuses only on the card
         out = F.relu(self.bn1(conv2d(x, self.conv1)))
         out = F.relu(self.bn2(conv2d(out, self.conv2)))
         out = self.bn3(conv2d(out, self.conv3))

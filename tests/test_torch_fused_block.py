@@ -258,3 +258,132 @@ def test_cuda_wrapper_checks_its_inputs():
         FB.fused_bottleneck_cuda(x, *args[:2], args[2][:, :, :1], *args[3:])
     with pytest.raises(TypeError, match="shifts must be float32"):
         FB.fused_bottleneck_cuda(x, args[0], args[1].double(), *args[2:])
+
+
+def _seeded_block(seed, cin=32, cm=8, down=True):
+    """A port Bottleneck in eval with seeded weights and frozen statistics."""
+    g = torch.Generator().manual_seed(seed)
+    block = R.Bottleneck(cin, cm, 1, downsample=down, fused="interpret").eval()
+    with torch.no_grad():
+        for t in block.parameters():
+            t.copy_(torch.randn(t.shape, generator=g) * t[0].numel() ** -0.5)
+        for name, t in block.named_buffers():
+            t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.75)
+    return block
+
+
+def _fresh_fold(block):
+    pairs = [(block.conv1, block.bn1), (block.conv2, block.bn2), (block.conv3, block.bn3),
+             (block.down_conv, block.down_bn)]
+    return [t for conv, bn in pairs for t in FB.fold_bn(conv.weight, dict(bn.named_buffers()),
+                                                         bn.eps)]
+
+
+def _count_folds(monkeypatch):
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return FB.fold_bn(*args, **kwargs)
+
+    monkeypatch.setattr(R, "fold_bn", counting)
+    return calls
+
+
+def test_fold_is_cached(monkeypatch):
+    """A second prepared()/folded() returns the cached tensors and folds
+    nothing."""
+    block = _seeded_block(0)
+    first = block.prepared()
+    calls = _count_folds(monkeypatch)
+    assert block.prepared() is first
+    again = block.folded()
+    assert all(a is b for a, b in zip(again, first.folded))
+    assert calls == []
+    assert all(torch.equal(a, b) for a, b in zip(again, _fresh_fold(block)))
+
+
+def _change(block, what):
+    with torch.no_grad():
+        if what == "running_var":
+            block.bn2.running_var.mul_(1.5)
+        elif what == "conv weight":
+            block.conv3.weight.add_(0.25)
+        elif what == "down_bn bias":
+            block.down_bn.bias[3] = 2.0
+        elif what == "load_state_dict":
+            block.load_state_dict(_seeded_block(9).state_dict())
+        elif what == "to float64 and back":
+            block.double().float()
+
+
+@pytest.mark.parametrize("what", ["running_var", "conv weight", "down_bn bias",
+                                  "load_state_dict", "to float64 and back"])
+def test_fold_cache_rebuilds_after_a_change(monkeypatch, what):
+    block = _seeded_block(1)
+    before = block.prepared()
+    stale = [t.clone() for t in before.folded]
+    _change(block, what)
+    calls = _count_folds(monkeypatch)
+    after = block.prepared()
+    assert after is not before and len(calls) == 4
+    fresh = _fresh_fold(block)
+    assert all(torch.equal(a, b) for a, b in zip(after.folded, fresh))
+    if what != "to float64 and back":  # that one leaves the values as they were
+        assert not all(torch.equal(a, b) for a, b in zip(stale, fresh))
+    assert block.prepared() is after and len(calls) == 4
+
+
+def test_fold_cache_built_in_inference_mode_serves_no_grad():
+    block = _seeded_block(2)
+    x = torch.randn(1, 32, 6, 6, generator=torch.Generator().manual_seed(3)).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        inside = block(x)
+    cached = block.prepared()
+    assert not any(t.is_inference() for t in cached.folded if t is not None)
+    assert not any(t.requires_grad for t in cached.folded if t is not None)
+    with torch.no_grad():
+        outside = block(x)
+    assert block.prepared() is cached
+    assert torch.equal(inside, outside)
+
+
+def test_warm_resnet_forward_folds_nothing_and_matches_jax(monkeypatch):
+    """A second forward of the fused ResNet takes every block's cached
+    bundle: no fold and no new bundle, and it still matches JAX."""
+    jax_model, v, x, port, xt = _resnet_pair("interpret")
+    with torch.no_grad():
+        cold = port(xt)
+    bundles = []
+    init = FB.PreparedBlock.__init__
+
+    def counting_init(self, *args):
+        bundles.append(1)
+        init(self, *args)
+
+    monkeypatch.setattr(FB.PreparedBlock, "__init__", counting_init)
+    calls = _count_folds(monkeypatch)
+    with torch.no_grad():
+        warm = port(xt)
+    assert calls == [] and bundles == []
+    assert all(torch.equal(a, b) for a, b in zip(cold, warm))
+    for o, r in zip(warm, jax_model.apply(v, x, False)):
+        _assert_block_close(o, np.asarray(r, np.float32), atol=0.2, mean=2e-2)
+
+
+def test_prepared_block_wrapper_checks_its_inputs():
+    """The prepared-block kernel wrapper refuses a CPU tensor and a channel
+    count the block does not take (the launch itself needs a card); a block
+    is checked when it is prepared."""
+    prepared = _seeded_block(4).prepared()
+    x = torch.randn(2, 32, 6, 8, generator=torch.Generator().manual_seed(5)).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="CUDA device"):
+        FB.fused_block_cuda(x, prepared)
+    with pytest.raises(ValueError, match="channels"):
+        FB.fused_block_cuda(x[:, :16], prepared)
+    with pytest.raises(TypeError, match="bf16 x"):
+        FB.fused_block_cuda(x.float(), prepared)
+    with pytest.raises(ValueError, match="Cout == Cin"):
+        FB.PreparedBlock(*_zeros(32, 8, 64, down=False)[1])
