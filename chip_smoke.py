@@ -23,16 +23,24 @@ Phases, each printed as JSON lines:
    on the CPU; raw outputs must agree within the stated tolerance, and
    ``nms_majority`` must give identical results on both devices.
 6. kernel (roi_align, nms): the RoIAlign kernel against its plain version at
-   the Faster R-CNN shape and at ragged ones (tolerances at ROI_*), the NMS
-   kernel equal to its plain version on clustered candidates at both of the
-   path's call shapes, with exact score ties and with every box dead.
+   the Faster R-CNN shape and at ragged ones (tolerances at ROI_*), with the
+   level it computed for each RoI against ``assign_fpn_levels`` (boxes at
+   the LevelMapper boundaries too) and each RoI's branch (footprint staged
+   in shared memory, or corners read directly) against
+   ``staged_rois``, both branches in one launch; the NMS kernel equal to
+   its plain version on clustered candidates at both of the path's call
+   shapes, with exact score ties and with every box dead, at RetinaNet's
+   shape and at 4096 spread boxes with K at 64-box chunk edges.
 7. frcnn_e2e: full-width Faster R-CNN R50-FPN (91 classes, 640², bf16,
    seeded random weights) through ``build_frcnn_pipeline_uint8`` at batch 16
    on three distinct pre-staged uint8 batches: 2 warm-up calls, 8 timed
    calls, one final sync; every kernel's launch count is set to 0 before the
    timed calls and read after. Then the stage times (CUDA events) and each
    new kernel alone at the path's own inputs, beside its bound and its plain
-   version.
+   version: for RoIAlign the RoIs of each branch and the bytes gathered from
+   L2 before (every sample's corners) and after (each footprint once); for
+   NMS the kept counts and the device time of its sort, mask and sweep
+   launches from a torch.profiler trace.
 8. frcnn_consistency: one image in f32 (TF32 off) on the GPU and on the CPU:
    FPN maps and RPN outputs within the stated tolerance; the RoIAlign kernel
    against the plain version on the CPU for the same proposals; the NMS
@@ -62,7 +70,7 @@ Phases, each printed as JSON lines:
 12. retinanet_post: the postprocess on seeded live bf16 logits [16, 76725,
    91] around the score threshold, on the GPU and on the CPU: labels, valid
    and order identical, boxes and scores within the stated tolerance; the
-   NMS kernel timed at its shape there (16 x 2000, K 300).
+   NMS kernel timed at its shape there (16 x 2000, K 300), with its phases.
 13. retinanet_consistency: one image in f32 (TF32 off) on the GPU and on
    the CPU: the head's outputs within the stated tolerance.
 
@@ -304,10 +312,20 @@ def random_rois(seed: int, batch: int, n: int, size: int = IMG) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).cuda()
 
 
-def check_roi_align(KR, case, maps, boxes, size=IMG, out_size=(7, 7)) -> float:
-    """Kernel vs plain version (and, in bf16, vs the f32 kernel) on one input."""
-    got = KR.multiscale_roi_align_cuda(maps, boxes, (size, size), out_size)
+def check_roi_align(KR, case, maps, boxes, size=IMG, out_size=(7, 7)):
+    """Kernel vs plain version (and, in bf16, vs the f32 kernel) on one input;
+    the level the kernel computed for each RoI against ``assign_fpn_levels``
+    and its branch (footprint staged in shared memory, or corners read
+    directly) against the rule ``staged_rois`` states. Returns (max abs
+    error, staged RoIs [B, N] bool)."""
+    from object_detectors_tpu_torch.ops.roi_align import assign_fpn_levels
+
+    route = torch.empty(boxes.shape[:2], dtype=torch.uint8, device="cuda")
+    got = KR.multiscale_roi_align_cuda(maps, boxes, (size, size), out_size, route=route)
     ref = KR.multiscale_roi_align_reference(maps, boxes, (size, size), out_size)
+    rule, foot = KR.staged_rois(maps, boxes, (size, size), out_size)
+    levels = torch.equal((route // 2).int(), assign_fpn_levels(boxes, len(maps)))
+    staged = (route % 2).bool()
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     f32 = maps[0].dtype == torch.float32
@@ -319,11 +337,45 @@ def check_roi_align(KR, case, maps, boxes, size=IMG, out_size=(7, 7)) -> float:
         ulp_ok = bool(((got.float() - ref32).abs() <= ulp).all())
     emit(phase="kernel", name="roi_align", case=case, dtype=str(maps[0].dtype),
          out_shape=list(got.shape), max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
-         within_one_ulp_of_f32_kernel=ulp_ok)
+         within_one_ulp_of_f32_kernel=ulp_ok, staged_rois=int(staged.sum()),
+         direct_rois=int((~staged).sum()), footprint_max=int(foot.max()),
+         footprints_at_the_stage=int((foot == KR.STAGE_PIXELS).sum()),
+         levels_as_assign_fpn_levels=levels, branch_as_the_rule_says=torch.equal(staged, rule))
     rtol, atol = (ROI_F32_RTOL, ROI_F32_ATOL) if f32 else (ROI_BF16_RTOL, ROI_BF16_ATOL)
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
     check(ulp_ok, f"bf16 RoIAlign kernel is not within one ulp of the f32 kernel ({case})")
-    return err
+    check(levels, f"RoIAlign kernel took other levels than assign_fpn_levels ({case})")
+    check(torch.equal(staged, rule), f"RoIAlign kernel staged other RoIs than the rule says "
+                                     f"({case})")
+    return err, staged
+
+
+def roi_gather_bytes(KR, maps, boxes, staged, size=IMG, out_size=(7, 7), s=2):
+    """The bytes a RoIAlign launch gathers from L2 into the SMs: (before,
+    after). Before, a kernel that reads every sample's corners from global
+    memory: the four corners of every sample inside the map, all channels,
+    each sample again. After: the footprint of every RoI the kernel staged
+    (``staged``, its own report), once, and the corners of the others as
+    before."""
+    from object_detectors_tpu_torch.ops import roi_align as R
+
+    flat = boxes.reshape(-1, 4)
+    hws = [m.shape[-2:] for m in maps]
+    lv = R.assign_fpn_levels(flat, len(maps)).long()
+
+    def per_roi(values):
+        return torch.tensor(values, dtype=torch.float32, device=boxes.device)[lv]
+
+    (oy, *_), (ox, *_) = R.roi_samples(flat, per_roi([R._infer_scale(hw, (size, size))
+                                                      for hw in hws]),
+                                       per_roi([h for h, _ in hws]), per_roi([w for _, w in hws]),
+                                       out_size, s)
+    samples = (~oy).flatten(1).sum(1) * (~ox).flatten(1).sum(1)
+    foot = KR.staged_rois(maps, boxes, (size, size), out_size, s)[1].flatten()
+    pixel = maps[0].shape[1] * maps[0].element_size()
+    st = staged.flatten().bool()
+    return (int(samples.sum()) * 4 * pixel,
+            int(foot[st].sum()) * pixel + int(samples[~st].sum()) * 4 * pixel)
 
 
 def phase_roi_align_kernel(KR) -> float:
@@ -333,18 +385,34 @@ def phase_roi_align_kernel(KR) -> float:
     ragged[0, :6] = torch.tensor([[-50, -40, 30, 20], [0, 0, IMG, 6], [3, 0, 9, IMG],
                                   [20, 20, 20, 20], [40, 40, 30, 30],
                                   [IMG - 2, IMG - 2, IMG + 90, IMG + 60]], device="cuda")
+    # on P2 alone, at 7x7: 8 x 17 footprint pixels (two slice buffers
+    # exactly), 16 x 17 (the stage exactly, one buffer), 28 x 28 (over it);
+    # sides at the LevelMapper boundaries on all four levels
+    both = ragged.clone()
+    both[0, :4] = torch.tensor([[10, 10, 76, 34], [10, 10, 76, 72], [10, 10, 130, 130],
+                                [10, 10, 90, 166]], device="cuda")
+    bounds = torch.tensor([[[0, 0, 112, 112], [0, 0, 224, 224], [0, 0, 448, 448],
+                            [0, 0, 111.99, 112], [7, 3, 231, 227], [1, 1, 447.99, 448.01]]],
+                          device="cuda").repeat(2, 1, 1)
     for dtype in (torch.bfloat16, torch.float32):
         maps = level_maps(0, FRCNN_BATCH, 256, dtype)
-        worst = max(worst, check_roi_align(KR, "Faster R-CNN shape", maps, boxes))
+        cases = [("Faster R-CNN shape", maps, boxes, IMG, (7, 7))]
         maps = [m[:2] for m in maps]
-        worst = max(worst, check_roi_align(KR, "outside, extreme aspects, degenerate", maps,
-                                           ragged))
-        worst = max(worst, check_roi_align(KR, "14x14", maps, ragged[:, :12].contiguous(),
-                                           out_size=(14, 14)))
-        worst = max(worst, check_roi_align(KR, "N=1", maps, ragged[:, :1].contiguous()))
-        worst = max(worst, check_roi_align(KR, "C=3 (one channel a thread)",
-                                           level_maps(2, 2, 3, dtype, 128),
-                                           random_rois(2, 2, 9, 128), size=128))
+        cases += [("outside, extreme aspects, degenerate", maps, ragged, IMG, (7, 7)),
+                  ("14x14", maps, ragged[:, :12].contiguous(), IMG, (14, 14)),
+                  ("N=1", maps, ragged[:, :1].contiguous(), IMG, (7, 7)),
+                  ("C=3 (one channel a thread)", level_maps(2, 2, 3, dtype, 128),
+                   random_rois(2, 2, 9, 128), 128, (7, 7)),
+                  ("LevelMapper boundaries", maps, bounds, IMG, (7, 7)),
+                  ("P2 alone: staged and direct RoIs, one at the stage", maps[:1], both, IMG,
+                   (7, 7)),
+                  ("P2 alone, 14x14: staged and direct RoIs", maps[:1], both, IMG, (14, 14))]
+        for case, m, b, size, out in cases:
+            err, staged = check_roi_align(KR, case, m, b, size, out)
+            worst = max(worst, err)
+            if "staged and direct" in case:
+                check(bool(staged.any()) and not bool(staged.all()),
+                      f"RoIAlign {case}: {int(staged.sum())} of {staged.numel()} staged")
     return worst
 
 
@@ -372,6 +440,19 @@ def phase_nms_kernel(KN):
         dead += check_nms(KN, case + ", all invalid", boxes, scores, thr, k,
                           torch.zeros_like(valid))
         check(dead == 0, f"{case}: NMS kept a dead box")
+    # RetinaNet's shape, boxes offset by class as batched_nms offsets them
+    boxes, scores, labels = [t.cuda() for t in clustered_candidates(6, FRCNN_BATCH, 2000)]
+    offset = labels.float()[..., None] * (boxes.amax(dim=(1, 2))[:, None, None] + 1.0)
+    check_nms(KN, "RetinaNet shape, class offsets", (boxes + offset).contiguous(), scores, 0.5, 300)
+    # the most boxes a group takes, spread so that most are kept and the
+    # sweep runs through all 64 mask words; K ends at chunk edges and beyond
+    rng = np.random.RandomState(7)
+    xy = rng.rand(3, 4096, 2) * IMG
+    boxes = torch.from_numpy(np.concatenate([xy, xy + 10 + rng.rand(3, 4096, 2) * 60], -1)
+                             .astype(np.float32)).cuda()
+    scores = torch.from_numpy(rng.rand(3, 4096).astype(np.float32)).cuda()
+    for k in (64, 65, 4096):
+        check_nms(KN, "4096 spread boxes", boxes, scores, 0.5, k)
 
 
 def greedy_iou_count(boxes, scores, keep, ok, thr) -> int:
@@ -390,6 +471,25 @@ def greedy_iou_count(boxes, scores, keep, ok, thr) -> int:
     first = over.to(torch.int32).argmax(1)
     n_kept = ok.sum(1)
     return int(((first + 1) * suppressed).sum()) + int((n_kept * (n_kept - 1) // 2).sum())
+
+
+def nms_phase_ms(KN, boxes, scores, thr, k, iters=10):
+    """The device time of each of the NMS kernel's three launches (sort,
+    IoU mask, sweep) a call, from a torch.profiler trace."""
+    names = {"nms_sort_kernel": "sort", "nms_mask_kernel": "mask", "nms_sweep_kernel": "sweep"}
+    KN.greedy_nms_cuda(boxes, scores, thr, k)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            KN.greedy_nms_cuda(boxes, scores, thr, k)
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(names.values(), 0.0)
+    for e in prof.events():
+        phase = next((v for key, v in names.items() if key in e.name), None)
+        if e.device_type == torch.autograd.DeviceType.CUDA and phase:
+            ms[phase] += e.device_time / 1e3 / iters
+    check(all(t > 0 for t in ms.values()), f"the NMS trace misses a phase: {ms}")
+    return ms
 
 
 def timed_calls(pipe, batches, counters, iters=8):
@@ -450,8 +550,9 @@ def phase_frcnn_e2e(PL, P, KR, KN, RPN):
         cand_boxes, cand_scores = RPN.level_candidates(props, obj.float(), sizes, (IMG, IMG), rpn)
         rois, _, roi_valid = RPN.filter_proposals(props, obj.float(), sizes, (IMG, IMG), rpn)
     maps = list(feats[:4])
-    roi_err = check_roi_align(KR, "Faster R-CNN path inputs", maps, rois)
+    roi_err, staged = check_roi_align(KR, "Faster R-CNN path inputs", maps, rois)
     pooled = KR.multiscale_roi_align_cuda(maps, rois, (IMG, IMG))
+    before, after = roi_gather_bytes(KR, maps, rois, staged)
     ms = cuda_ms(lambda: KR.multiscale_roi_align_cuda(maps, rois, (IMG, IMG)), 20)
     plain_ms = cuda_ms(lambda: KR.multiscale_roi_align_reference(maps, rois, (IMG, IMG)), 3)
     moved = (pooled.numel() * pooled.element_size()
@@ -460,11 +561,13 @@ def phase_frcnn_e2e(PL, P, KR, KN, RPN):
     ops = pooled.numel() * (8 * 2 * 2 + 1)  # 4 multiply-adds a sample, 4 samples, 1 divide
     bound, bound_by = time_bound(moved, ops)
     roi = dict(launches=launches["roi_align"], max_abs_err=roi_err, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound, bound_by=bound_by)
+               bound_ms=bound, bound_by=bound_by,
+               path_rois={"staged": int(staged.sum()), "direct": int((~staged).sum())})
     emit(phase="kernel_time", name="roi_align", out_shape=list(pooled.shape),
          valid_proposals=int(roi_valid.sum()), bytes=moved, operations=ops,
          launches_per_batch=launches["roi_align"] / iters, library_ms=None,
          achieved_tb_per_s=moved / (ms * 1e-3) / 1e12,
+         l2_gather_bytes_counted_from_geometry={"before": before, "after": after},
          **{k: v for k, v in roi.items() if k not in ("launches", "max_abs_err")})
 
     n = rpn.pre_nms_top_n_test
@@ -483,7 +586,8 @@ def phase_frcnn_e2e(PL, P, KR, KN, RPN):
         moved = b.numel() * 4 + s.numel() * 4 + keep.numel() * 4 + ok.numel()
         ious = greedy_iou_count(b, s, keep, ok, thr)
         bound, bound_by = time_bound(moved, ious * IOU_OPS)
-        timings[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        timings[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                             phases_ms=nms_phase_ms(KN, b, s, thr, k))
         emit(phase="kernel_time", name="nms", case=case, groups=s.shape[0], n=s.shape[1], k=k,
              kept=int(ok.sum()), bytes=moved, ious=ious, operations=ious * IOU_OPS,
              launches_per_batch=launches["nms"] / iters, library_ms=None, **timings[case])
@@ -826,11 +930,13 @@ def phase_retinanet_post(RN, KN, pipe_anchors):
     moved = b.numel() * 4 + s.numel() * 4 + keep.numel() * 4 + ok.numel()
     ious = greedy_iou_count(b, s, keep, ok, thr)
     bound, bound_by = time_bound(moved, ious * IOU_OPS)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                  phases_ms=nms_phase_ms(KN, b, s, thr, k))
     emit(phase="kernel_time", name="nms", case="RetinaNet postprocess, live logits",
-         groups=s.shape[0], n=s.shape[1], k=k, kept=int(ok.sum()), bytes=moved, ious=ious,
-         operations=ious * IOU_OPS, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-         bound_by=bound_by, library_ms=None)  # torchvision is not a dependency
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+         groups=s.shape[0], n=s.shape[1], k=k, kept=int(ok.sum()),
+         live=int((s > float("-inf")).sum()), bytes=moved, ious=ious,
+         operations=ious * IOU_OPS, library_ms=None, **timing)  # torchvision is not a dependency
+    return timing
 
 
 def phase_retinanet_consistency(PL, P, u8):

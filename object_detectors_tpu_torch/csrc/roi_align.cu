@@ -9,29 +9,53 @@
 //
 // Inputs: up to four FPN level maps [B, C, H_l, W_l] in channels_last memory
 // (NHWC bytes), bf16 or f32, each with its spatial scale; boxes [B, N, 4]
-// xyxy f32 in image coordinates; levels [B, N] int32, the level of each box
-// from ops/roi_align.py:assign_fpn_levels, computed by the wrapper so that the
-// kernel and the plain version agree on every box. Output [B, N, oh, ow, C]
-// in the maps' dtype, accumulated in f32.
+// xyxy f32 in image coordinates. Output [B, N, oh, ow, C] in the maps'
+// dtype, accumulated in f32. The kernel takes each box's level as
+// ops/roi_align.py:assign_fpn_levels does, in the same f32 operations.
 //
 // Semantics, as ops/roi_align.py:multiscale_roi_align_canvas: the box is
 // scaled, roi_w = max(x2 - x1, 1) (and h), bin = roi / out; sample (k_y, k_x)
 // of bin (i, j) sits at y1 + (i + (k_y + 0.5) / s) * bin_h; a sample outside
 // [-1, H] x [-1, W] counts 0; the rest clamp to [0, H-1] x [0, W-1] and are
-// interpolated from their four neighbours; the bin is the mean of its s^2
-// samples. Built with -fmad=false, the positions and weights are the plain
-// version's bit for bit; only the order of the sums differs.
-//
-// Design: one block per RoI; a thread owns a run of 16 bytes of channels
-// (8 bf16 or 4 f32) of one output pixel, so the four corner reads of a sample
-// and the output store are coalesced 16-byte runs across the block's
-// threads. C not divisible by that run, or a base that is not 16-byte
-// aligned, takes the one-channel-per-thread instantiation.
+// interpolated from their four neighbours, weights (1-ly)(1-lx), (1-ly)lx,
+// ly(1-lx), ly lx; the bin is the mean of its s^2 samples. Built with
+// -fmad=false, the positions and weights are the plain version's bit for
+// bit; only the order of the sums differs.
 //
 // Bound: bytes. At the Faster R-CNN shape (16 images x 1000 RoIs, 7x7, 256
 // channels, bf16, P2-P5 of 640^2 images) the output is 401 MB and the level
-// maps, read once, 279 MB: about 0.20 ms at 3.35 TB/s. The kernel reads each
-// touched feature row once per sample instead, from L2 where RoIs overlap.
+// maps, read once, 279 MB: about 0.20 ms at 3.35 TB/s. Without FMA
+// contraction the bilinear sums alone take 8 f32 instructions per element
+// and sample, about 0.2 ms of the card's issue rate, beside the bf16
+// conversions.
+//
+// Design: one block of 128 threads per RoI, six blocks an SM, RoIs in
+// image-major order so that one image's maps (17.4 MB) stay in L2 while its
+// RoIs are pooled.
+// - Geometry once per RoI: one warp computes the oh*s y-samples (floor,
+//   clamped neighbour, fraction, outside flag), another the ow*s x-samples,
+//   and each numbers the distinct rows (columns) the inside samples' corners
+//   touch with ballots: the positions grow with the sample index, so a row
+//   is new exactly when it exceeds the last one listed. Every output pixel
+//   then combines a y-entry and an x-entry, whose corner offsets are set
+//   once for the branch the RoI takes.
+// - The footprint, those rows x columns (at most 2*oh*s x 2*ow*s, 28 x 28 at
+//   7x7, s = 2), is copied into shared memory 128 bytes of channels at a
+//   time (64 bf16 or 32 f32) with 16-byte cp.async and interpolated from
+//   there; a thread pools 32 bytes of channels of one output pixel. A
+//   footprint of at most kStagePixels / 2 gets two slice buffers, the next
+//   slice's copy in flight while this one is pooled; one of at most
+//   kStagePixels gets one buffer; a larger one (28 x 28 is the most at 7x7,
+//   s = 2; the RPN's proposals at frcnn640 reach 264) reads its corners
+//   from global memory instead. The branch is taken per RoI; maps whose
+//   channels are not 16-byte runs (the one-channel-a-thread instantiation)
+//   always read directly.
+// - Stores: 16-byte runs, streaming (st.global.cs), so that the 401 MB
+//   output does not push the level maps out of L2.
+// The gather from L2 into the SMs at the Faster R-CNN shape: the corner
+// reads of every sample, 784 rows of 512 bytes a RoI or 6.4 GB a launch,
+// before; each distinct footprint pixel once, 0.68 GB for the RPN's
+// proposals of the frcnn640 path, after (chip_smoke prints both).
 //
 // C interface (loaded with ctypes): the entry point launches on `stream` and
 // returns cudaGetLastError().
@@ -42,8 +66,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 6;      // blocks an SM: registers and shared memory are sized for it
 constexpr int kMaxLevels = 4;
+constexpr int kVecs = 2;           // 16-byte vectors of channels a thread pools
+constexpr int kSliceBytes = 128;   // channels of one staged pass, per pixel
+// The largest footprint staged in shared memory: 128 + 4 bytes a pixel, about
+// 37 KB a block with the taps, six blocks an SM.
+constexpr int kStagePixels = 272;
+constexpr int kMaxSmem = 227 * 1024 - 64;  // less the static shared memory
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Level {
   const void* data;
@@ -54,6 +86,18 @@ struct Level {
 
 struct Levels {
   Level l[kMaxLevels];
+};
+
+// One sample position along one axis of a RoI.
+struct __align__(16) Tap {
+  int o0;     // element offset of its floor row (column) in the map, or in the stage
+  int o1;     // the same for the neighbour row (column)
+  float f;    // the clamped position minus its floor; -1 outside the map
+  float omf;  // 1 - f
+  int g0;     // floor of the clamped position: a row (column) of the level map
+  int g1;     // min(g0 + 1, size - 1)
+  int c0;     // g0's and g1's places among the distinct rows (columns) the RoI touches
+  int c1;
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -86,13 +130,14 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[VEC]) {
   }
 }
 
+// Streaming stores: the output is written once and not read by this kernel.
 template <int VEC>
 __device__ __forceinline__ void store(float* p, const float (&v)[VEC]) {
   if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   } else {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = v[i];
+    for (int i = 0; i < VEC; ++i) __stcs(p + i, v[i]);
   }
 }
 
@@ -103,92 +148,342 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[VEC]) {
     __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&t);
 #pragma unroll
     for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16_rn(v[i]);
-    *reinterpret_cast<uint4*>(p) = t;
+    __stcs(reinterpret_cast<uint4*>(p), t);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) p[i] = __float2bfloat16_rn(v[i]);
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// torchvision's LevelMapper in the f32 operations of
+// ops/roi_align.py:assign_fpn_levels, which the plain version uses on the
+// card: the same correctly rounded sqrt and divide and the same log2f.
+__device__ __forceinline__ int fpn_level(float4 box, int num_levels) {
+  const float area = (box.z - box.x) * (box.w - box.y);
+  const float side = sqrtf(area < 0.0f ? 0.0f : area) / 224.0f;
+  const float k = floorf(4.0f + log2f(side + 1e-6f)) - 2.0f;
+  return static_cast<int>(fminf(fmaxf(k, 0.0f), static_cast<float>(num_levels - 1)));
+}
+
+// The samples along one axis, lane by lane: sample k = i * s + k_s of bin i.
+__device__ void axis_taps(float lo, float bin, int out, int s, int size, Tap* taps, int lane) {
+  const float sf = static_cast<float>(size);
+  for (int k = lane; k < out * s; k += 32) {
+    const int i = k / s;
+    const int ks = k - i * s;
+    const float v = lo + (static_cast<float>(i) +
+                          (static_cast<float>(ks) + 0.5f) / static_cast<float>(s)) * bin;
+    const float clamped = fminf(fmaxf(v, 0.0f), sf - 1.0f);
+    const float f0 = floorf(clamped);
+    Tap t;
+    t.g0 = static_cast<int>(f0);
+    t.g1 = min(t.g0 + 1, size - 1);
+    t.f = (v < -1.0f || v > sf) ? -1.0f : clamped - f0;
+    t.omf = 1.0f - t.f;
+    taps[k] = t;
+  }
+}
+
+// Lists the distinct rows (columns) the inside taps touch, ascending, and
+// numbers each tap's two corners by their places in the list; returns the
+// count. One warp, a tap a lane. g0 and g1 never decrease along the taps
+// (the positions grow), so a tap's g0 is new exactly when it exceeds the
+// last row listed before it, the g1 of the nearest inside tap before it;
+// otherwise it is that row or the one before.
+__device__ int compact(Tap* taps, int n, int* list, int lane) {
+  const unsigned below = (1u << lane) - 1;
+  int count = 0, last_listed = -1;  // carried from one 32-tap round to the next
+  for (int base = 0; base < n; base += 32) {
+    const int k = base + lane;
+    const bool in = k < n && taps[k].f >= 0.0f;  // outside the map: reads nothing
+    const int g0 = in ? taps[k].g0 : 0;
+    const int g1 = in ? taps[k].g1 : 0;
+    const unsigned inside = __ballot_sync(kFull, in);
+    const unsigned earlier = inside & below;
+    const int prev_g1 = __shfl_sync(kFull, g1, earlier ? 31 - __clz(earlier) : 0);
+    const int last = earlier ? prev_g1 : last_listed;
+    const bool new0 = in && g0 > last;
+    const bool new1 = in && g1 > g0 && g1 > last;
+    const unsigned b0 = __ballot_sync(kFull, new0);
+    const unsigned b1 = __ballot_sync(kFull, new1);
+    const int before = count + __popc(b0 & below) + __popc(b1 & below);
+    if (in) {
+      const int c0 = new0 ? before : (g0 == last ? before - 1 : before - 2);
+      if (new0) list[before] = g0;
+      if (new1) list[before + new0] = g1;
+      taps[k].c0 = c0;
+      taps[k].c1 = g1 == g0 ? c0 : (new1 ? before + new0 : before - 1);
+    }
+    count += __popc(b0) + __popc(b1);
+    if (inside) last_listed = __shfl_sync(kFull, g1, 31 - __clz(inside));
+  }
+  return count;
+}
+
+// a / b for 0 <= a < 2^22 and 1 <= b, from b's reciprocal in f32: the
+// quotient plus one half lies at least 0.5 / b from an integer, more than
+// the rounding moves it
+__device__ __forceinline__ int quot(int a, float inv_b) {
+  return static_cast<int>((static_cast<float>(a) + 0.5f) * inv_b);
+}
+
+// The element offsets of the taps' corners: rows (columns) of the stage, or
+// of the map, `step` elements apart.
+__device__ void place_taps(Tap* taps, int n, bool staged, int step, int lane) {
+  for (int k = lane; k < n; k += 32) {
+    taps[k].o0 = (staged ? taps[k].c0 : taps[k].g0) * step;
+    taps[k].o1 = (staged ? taps[k].c1 : taps[k].g1) * step;
+  }
+}
+
+// One output bin for kVecs vectors of VEC channels, vector v at base +
+// off[v] where bit v of `valid` is set (the bin's corner offsets come from
+// its taps): the mean of its s^2 samples, each the weighted sum of its four
+// corners in the order of the plain version's expression. A power-of-two
+// count divides as a multiplication by its reciprocal, which rounds the
+// same.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-roi_align_kernel(Levels levels_in, const float4* __restrict__ boxes,
-                 const int32_t* __restrict__ levels, T* __restrict__ out, int n, int c,
-                 int oh, int ow, int s) {
+__device__ __forceinline__ void pool_bin(const Tap* ty, const Tap* tx, int s, const T* base,
+                                         const int (&off)[kVecs], int valid,
+                                         float (&acc)[kVecs][VEC]) {
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[v][i] = 0.0f;
+  }
+  for (int ky = 0; ky < s; ++ky) {
+    const Tap a = ty[ky];
+    for (int kx = 0; kx < s; ++kx) {
+      const Tap b = tx[kx];
+      if (a.f < 0.0f || b.f < 0.0f) continue;  // adds 0
+      const float w00 = a.omf * b.omf;
+      const float w01 = a.omf * b.f;
+      const float w10 = a.f * b.omf;
+      const float w11 = a.f * b.f;
+      const T* p00 = base + a.o0 + b.o0;
+      const T* p01 = base + a.o0 + b.o1;
+      const T* p10 = base + a.o1 + b.o0;
+      const T* p11 = base + a.o1 + b.o1;
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        if ((valid >> v) & 1) {
+          float x[VEC], sum[VEC];
+          load<VEC>(p00 + off[v], x);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) sum[i] = w00 * x[i];
+          load<VEC>(p01 + off[v], x);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) sum[i] = sum[i] + w01 * x[i];
+          load<VEC>(p10 + off[v], x);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) sum[i] = sum[i] + w10 * x[i];
+          load<VEC>(p11 + off[v], x);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[v][i] += sum[i] + w11 * x[i];
+        }
+      }
+    }
+  }
+  const int n = s * s;
+  const float count = static_cast<float>(n);
+  const float inv = 1.0f / count;
+  const bool pow2 = (n & (n - 1)) == 0;
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[v][i] = pow2 ? acc[v][i] * inv : acc[v][i] / count;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_bin(T* out, const int (&off)[kVecs], int valid,
+                                          const float (&acc)[kVecs][VEC]) {
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    if ((valid >> v) & 1) store<VEC>(out + off[v], acc[v]);
+  }
+}
+
+// Staged in shared memory: maps whose channels come in 16-byte vectors.
+template <typename T, int VEC>
+constexpr bool kStaged = VEC * sizeof(T) == 16;
+
+// Shared memory before the taps: the stage (one slice of a footprint of
+// kStagePixels, or two of half that) and the footprint's pixel offsets.
+template <typename T, int VEC>
+constexpr int kStageBytes = kStaged<T, VEC> ? (kSliceBytes + 4) * kStagePixels : 0;
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+roi_align_kernel(Levels levels_in, int num_levels, const float4* __restrict__ boxes,
+                 T* __restrict__ out, uint8_t* __restrict__ route, int n, int c, int oh, int ow,
+                 int s) {
+  constexpr int kSlice = kSliceBytes / static_cast<int>(sizeof(T));  // channels a pass
+  constexpr int kGroup = kVecs * VEC;                                // channels a thread
+  constexpr int kChunks = kSliceBytes / 16;                          // 16-byte copies a pixel
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);                                // [kStagePixels][kSlice]
+  int* pix = reinterpret_cast<int*>(smem + kSliceBytes * kStagePixels);  // [kStagePixels]
+  Tap* ty = reinterpret_cast<Tap*>(smem + kStageBytes<T, VEC>);         // [oh * s]
+  Tap* tx = ty + oh * s;                                                // [ow * s]
+  int* rows = reinterpret_cast<int*>(tx + ow * s);                      // [2 * oh * s]
+  int* cols = rows + 2 * oh * s;                                        // [2 * ow * s]
+  __shared__ int n_rows, n_cols;
+
   const int64_t r = blockIdx.x;  // RoI index over B * N
   const int64_t b = r / n;
-  const int lvl = levels[r];
+  const float4 box = boxes[r];
+  const int lvl = fpn_level(box, num_levels);
   Level L = levels_in.l[0];
 #pragma unroll
   for (int i = 1; i < kMaxLevels; ++i) {
     if (lvl == i) L = levels_in.l[i];
   }
   const T* feat = static_cast<const T*>(L.data) + b * L.h * L.w * c;
-  const float4 box = boxes[r];
   const float x1 = box.x * L.scale;
   const float y1 = box.y * L.scale;
   const float x2 = box.z * L.scale;
   const float y2 = box.w * L.scale;
   const float bin_w = fmaxf(x2 - x1, 1.0f) / static_cast<float>(ow);
   const float bin_h = fmaxf(y2 - y1, 1.0f) / static_cast<float>(oh);
-  const float hf = static_cast<float>(L.h);
-  const float wf = static_cast<float>(L.w);
-  const float count = static_cast<float>(s * s);
-  const int groups = c / VEC;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == 0) {
+    axis_taps(y1, bin_h, oh, s, L.h, ty, lane);
+    __syncwarp();
+    const int count = compact(ty, oh * s, rows, lane);
+    if (lane == 0) n_rows = count;
+  } else if (warp == 1) {
+    axis_taps(x1, bin_w, ow, s, L.w, tx, lane);
+    __syncwarp();
+    const int count = compact(tx, ow * s, cols, lane);
+    if (lane == 0) n_cols = count;
+  }
+  __syncthreads();
+  const int nc = n_cols;
+  const int foot = n_rows * nc;
+  const bool stage = kStaged<T, VEC> && foot <= kStagePixels;
+  if (route && threadIdx.x == 0) route[r] = static_cast<uint8_t>(lvl * 2 + stage);
+  if (warp == 0) place_taps(ty, oh * s, stage, stage ? nc * kSlice : L.w * c, lane);
+  if (warp == 1) place_taps(tx, ow * s, stage, stage ? kSlice : c, lane);
+  if (stage) {
+    const float inv_nc = 1.0f / static_cast<float>(nc);
+    for (int p = threadIdx.x; p < foot; p += kThreads) {
+      const int y = quot(p, inv_nc);
+      pix[p] = rows[y] * L.w + cols[p - y * nc];
+    }
+  }
+  __syncthreads();
   T* out_roi = out + r * oh * ow * c;
+  const float inv_ow = 1.0f / static_cast<float>(ow);
 
-  for (int t = threadIdx.x; t < oh * ow * groups; t += blockDim.x) {
-    const int ch = (t % groups) * VEC;
-    const int pix = t / groups;
-    const int py = pix / ow;
-    const int px = pix % ow;
-    float acc[VEC];
+  if (!stage) {  // corners straight from global memory
+    const int groups = (c + kGroup - 1) / kGroup;
+    for (int t = threadIdx.x; t < oh * ow * groups; t += kThreads) {
+      const int ch = (t % groups) * kGroup;
+      const int p = t / groups;
+      const int py = quot(p, inv_ow);
+      int off[kVecs], valid = 0;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
-    for (int ky = 0; ky < s; ++ky) {
-      const float ys = y1 + (static_cast<float>(py) +
-                             (static_cast<float>(ky) + 0.5f) / static_cast<float>(s)) * bin_h;
-      for (int kx = 0; kx < s; ++kx) {
-        const float xs = x1 + (static_cast<float>(px) +
-                               (static_cast<float>(kx) + 0.5f) / static_cast<float>(s)) * bin_w;
-        if (ys < -1.0f || ys > hf || xs < -1.0f || xs > wf) continue;  // adds 0
-        const float y = fminf(fmaxf(ys, 0.0f), hf - 1.0f);
-        const float x = fminf(fmaxf(xs, 0.0f), wf - 1.0f);
-        const float fy0 = floorf(y);
-        const float fx0 = floorf(x);
-        const int y0 = static_cast<int>(fy0);
-        const int x0 = static_cast<int>(fx0);
-        const int y1i = min(y0 + 1, L.h - 1);
-        const int x1i = min(x0 + 1, L.w - 1);
-        const float ly = y - fy0;
-        const float lx = x - fx0;
-        const float w00 = (1.0f - ly) * (1.0f - lx);
-        const float w01 = (1.0f - ly) * lx;
-        const float w10 = ly * (1.0f - lx);
-        const float w11 = ly * lx;
-        float v00[VEC], v01[VEC], v10[VEC], v11[VEC];
-        load<VEC>(feat + (static_cast<int64_t>(y0) * L.w + x0) * c + ch, v00);
-        load<VEC>(feat + (static_cast<int64_t>(y0) * L.w + x1i) * c + ch, v01);
-        load<VEC>(feat + (static_cast<int64_t>(y1i) * L.w + x0) * c + ch, v10);
-        load<VEC>(feat + (static_cast<int64_t>(y1i) * L.w + x1i) * c + ch, v11);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          acc[i] += w00 * v00[i] + w01 * v01[i] + w10 * v10[i] + w11 * v11[i];
+      for (int v = 0; v < kVecs; ++v) {
+        off[v] = v * VEC;
+        valid |= (ch + off[v] < c) << v;
+      }
+      float acc[kVecs][VEC];
+      pool_bin<T, VEC>(ty + py * s, tx + (p - py * ow) * s, s, feat + ch, off, valid, acc);
+      store_bin<T, VEC>(out_roi + static_cast<int64_t>(p) * c + ch, off, valid, acc);
+    }
+    return;
+  }
+
+  if constexpr (kStaged<T, VEC>) {
+    auto copy = [&](int slice, T* dst) {
+      for (int e = threadIdx.x; e < foot * kChunks; e += kThreads) {
+        const int q = e % kChunks;
+        const int p = e / kChunks;
+        const int ch = slice * kSlice + q * VEC;
+        if (ch < c) {
+          cp_async16(dst + p * kSlice + q * VEC, feat + static_cast<int64_t>(pix[p]) * c + ch);
         }
       }
-    }
+      cp_async_commit();
+    };
+    // Two slice buffers when two footprints fit in the stage, the next
+    // slice's copy in flight while this one is pooled; else one.
+    const int slices = (c + kSlice - 1) / kSlice;
+    const bool two = 2 * foot <= kStagePixels;
+    T* next = buf + (two ? kStagePixels / 2 * kSlice : 0);
+    copy(0, buf);
+    for (int sl = 0; sl < slices; ++sl) {
+      const T* cur = (sl & 1) ? next : buf;
+      if (two && sl + 1 < slices) {
+        copy(sl + 1, (sl & 1) ? buf : next);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // this slice has landed for every thread
+      constexpr int kPer = kSlice / kGroup;  // threads a pixel
+      const int base = sl * kSlice;
+      for (int t = threadIdx.x; t < oh * ow * kPer; t += kThreads) {
+        const int q = t % kPer;
+        const int p = t / kPer;
+        const int py = quot(p, inv_ow);
+        int off[kVecs], valid = 0;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = acc[i] / count;
-    store<VEC>(out_roi + static_cast<int64_t>(pix) * c + ch, acc);
+        for (int v = 0; v < kVecs; ++v) {
+          off[v] = (q * kVecs + v) * VEC;
+          valid |= (base + off[v] < c) << v;
+        }
+        if (!valid) continue;
+        float acc[kVecs][VEC];
+        pool_bin<T, VEC>(ty + py * s, tx + (p - py * ow) * s, s, cur, off, valid, acc);
+        store_bin<T, VEC>(out_roi + static_cast<int64_t>(p) * c + base, off, valid, acc);
+      }
+      __syncthreads();  // every thread is done with cur before a copy overwrites it
+      if (!two && sl + 1 < slices) copy(sl + 1, (sl & 1) ? buf : next);
+    }
   }
 }
 
+// Raises the dynamic shared memory a kernel may take to `bytes` on the
+// current device, unless an earlier launch there already did.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && allowed[dev] >= bytes)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  return err;
+}
+
 template <typename T, int VEC>
-cudaError_t launch(const Levels& lv, const void* boxes, const void* levels, void* out,
+cudaError_t launch(const Levels& lv, int num_levels, const void* boxes, void* out, void* route,
                    int rois, int n, int c, int oh, int ow, int s, cudaStream_t stream) {
-  roi_align_kernel<T, VEC><<<rois, kThreads, 0, stream>>>(
-      lv, static_cast<const float4*>(boxes), static_cast<const int32_t*>(levels),
-      static_cast<T*>(out), n, c, oh, ow, s);
+  const size_t smem = kStageBytes<T, VEC> +
+                      static_cast<size_t>(oh + ow) * s * (sizeof(Tap) + 2 * sizeof(int));
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(roi_align_kernel<T, VEC>, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  roi_align_kernel<T, VEC><<<rois, kThreads, smem, stream>>>(
+      lv, num_levels, static_cast<const float4*>(boxes), static_cast<T*>(out),
+      static_cast<uint8_t*>(route), n, c, oh, ow, s);
   return cudaGetLastError();
 }
 
@@ -197,31 +492,41 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Unused level slots may hold null.
+// route, if not null, receives [rois] uint8: the RoI's level times 2, plus
+// 1 where its footprint was staged in shared memory (0: its corners were
+// read directly).
 extern "C" int roi_align_forward(int dtype, int num_levels, const void* f0, int h0, int w0,
                                  float s0, const void* f1, int h1, int w1, float s1,
                                  const void* f2, int h2, int w2, float s2, const void* f3,
-                                 int h3, int w3, float s3, const void* boxes,
-                                 const void* levels, void* out, int rois, int n, int c, int oh,
-                                 int ow, int sampling_ratio, void* stream) {
+                                 int h3, int w3, float s3, const void* boxes, void* out,
+                                 void* route, int rois, int n, int c, int oh, int ow,
+                                 int sampling_ratio, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels || rois < 0 || n <= 0 || c <= 0 ||
-      oh <= 0 || ow <= 0 || sampling_ratio <= 0 || (dtype != 0 && dtype != 1)) {
+      oh <= 0 || ow <= 0 || sampling_ratio <= 0 || (dtype != 0 && dtype != 1) ||
+      static_cast<int64_t>(oh) * ow >= (1 << 22)) {  // quot() takes the bins' indices
     return cudaErrorInvalidValue;
   }
   if (rois == 0) return cudaSuccess;
   const Levels lv = {{{f0, h0, w0, s0}, {f1, h1, w1, s1}, {f2, h2, w2, s2}, {f3, h3, w3, s3}}};
   bool aligned = aligned16(out);
-  for (int i = 0; i < num_levels; ++i) aligned = aligned && aligned16(lv.l[i].data);
+  for (int i = 0; i < num_levels; ++i) {
+    aligned = aligned && aligned16(lv.l[i].data);
+    // a corner's offset in one image's map is an int
+    if (static_cast<int64_t>(lv.l[i].h) * lv.l[i].w * c > INT32_MAX) return cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (aligned && c % 8 == 0) {
-      return launch<__nv_bfloat16, 8>(lv, boxes, levels, out, rois, n, c, oh, ow,
+      return launch<__nv_bfloat16, 8>(lv, num_levels, boxes, out, route, rois, n, c, oh, ow,
                                       sampling_ratio, st);
     }
-    return launch<__nv_bfloat16, 1>(lv, boxes, levels, out, rois, n, c, oh, ow,
+    return launch<__nv_bfloat16, 1>(lv, num_levels, boxes, out, route, rois, n, c, oh, ow,
                                     sampling_ratio, st);
   }
   if (aligned && c % 4 == 0) {
-    return launch<float, 4>(lv, boxes, levels, out, rois, n, c, oh, ow, sampling_ratio, st);
+    return launch<float, 4>(lv, num_levels, boxes, out, route, rois, n, c, oh, ow,
+                            sampling_ratio, st);
   }
-  return launch<float, 1>(lv, boxes, levels, out, rois, n, c, oh, ow, sampling_ratio, st);
+  return launch<float, 1>(lv, num_levels, boxes, out, route, rois, n, c, oh, ow, sampling_ratio,
+                          st);
 }

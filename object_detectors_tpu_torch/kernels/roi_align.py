@@ -8,8 +8,10 @@ default, bands, tiled and the per-RoI window kernel), which compute this one
 function. ``multiscale_roi_align_cuda`` launches the hand-written kernel in
 ``csrc/roi_align.cu`` (or raises); ``multiscale_roi_align_reference`` is the
 plain version, ``ops/roi_align.py:multiscale_roi_align_canvas`` image by
-image. Both take each box's level from ``assign_fpn_levels`` on the boxes'
-device, so they agree on every level.
+image, which takes each box's level from ``assign_fpn_levels``; the kernel
+computes the same level in the same f32 operations. ``staged_rois``
+repeats on the host the rule by which the kernel stages a RoI's footprint
+in shared memory.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ import torch
 
 from object_detectors_tpu_torch.kernels._build import load_library
 from object_detectors_tpu_torch.ops.roi_align import (
-    _infer_scale, assign_fpn_levels, multiscale_roi_align_canvas,
+    _infer_scale, assign_fpn_levels, multiscale_roi_align_canvas, roi_samples,
 )
 
 MAX_LEVELS = 4
+# kStagePixels of csrc/roi_align.cu: the largest footprint (rows x columns)
+# the kernel stages in shared memory
+STAGE_PIXELS = 272
 
 # Kernel launches so far; a run sets it to 0 and reads it to show that a
 # path went through the kernel.
@@ -46,6 +51,58 @@ def multiscale_roi_align_reference(features: Sequence[torch.Tensor], boxes: torc
         return boxes.new_empty((0, boxes.shape[1], oh, ow, features[0].shape[1]),
                                dtype=features[0].dtype)
     return torch.stack(out).to(features[0].dtype)
+
+
+def _distinct(outside: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor) -> torch.Tensor:
+    """Samples [N, out, s] -> [N, 2 out s]: the distinct values of i0 and i1
+    over the samples not outside, ascending, padded with -1."""
+    inside = ~outside.flatten(1)
+    v = torch.cat([i0.flatten(1), i1.flatten(1)], 1)
+    v = torch.where(torch.cat([inside, inside], 1), v, float("inf")).sort(1).values
+    new = torch.ones_like(v, dtype=torch.bool)
+    new[:, 1:] = v[:, 1:] != v[:, :-1]
+    v = torch.where(new & torch.isfinite(v), v, float("inf")).sort(1).values
+    return torch.where(torch.isfinite(v), v, -1.0).long()
+
+
+def staging_window(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_size,
+                   output_size=(7, 7), sampling_ratio: int = 2):
+    """The footprint of each RoI as the kernel stages it: the distinct rows
+    and columns of its level map that the corners of its samples inside
+    [-1, H] x [-1, W] touch. Level maps [B, C, H_l, W_l], boxes [B, N, 4] ->
+    (rows [B, N, 2 oh s], cols [B, N, 2 ow s]) int64, each RoI's indices
+    ascending, padded with -1. The kernel stages a RoI whose rows x columns
+    are at most ``STAGE_PIXELS`` and reads the corners of the others
+    directly."""
+    b, n = boxes.shape[:2]
+    flat = boxes.reshape(-1, 4)
+    sizes = [f.shape[-2:] for f in features]
+    lv = assign_fpn_levels(flat, len(features)).long()
+
+    def per_roi(values):
+        return torch.tensor(values, dtype=torch.float32, device=boxes.device)[lv]
+
+    (oy, y0, y1, _), (ox, x0, x1, _) = roi_samples(
+        flat, per_roi([_infer_scale(hw, image_size) for hw in sizes]),
+        per_roi([h for h, _ in sizes]), per_roi([w for _, w in sizes]), output_size,
+        sampling_ratio)
+    return _distinct(oy, y0, y1).view(b, n, -1), _distinct(ox, x0, x1).view(b, n, -1)
+
+
+def staged_rois(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_size,
+                output_size=(7, 7), sampling_ratio: int = 2):
+    """Which RoIs the kernel pools from a footprint staged in shared memory:
+    (staged [B, N] bool, footprint pixels [B, N] int64, the rows times the
+    columns ``staging_window`` lists). A RoI is staged when its footprint is
+    at most ``STAGE_PIXELS``, the channels are whole 16-byte runs and every
+    level map starts on a 16-byte boundary (so does the output, which the
+    wrapper allocates); the kernel reads the corners of the others
+    directly."""
+    rows, cols = staging_window(features, boxes, image_size, output_size, sampling_ratio)
+    foot = (rows >= 0).sum(-1) * (cols >= 0).sum(-1)
+    runs = 16 // features[0].element_size()
+    vectors = features[0].shape[1] % runs == 0 and all(f.data_ptr() % 16 == 0 for f in features)
+    return (foot <= STAGE_PIXELS) & vectors, foot
 
 
 def _check(features: Sequence[torch.Tensor], boxes: torch.Tensor, sampling_ratio) -> None:
@@ -75,15 +132,22 @@ def _function():
 
 
 def multiscale_roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                              image_size, output_size=(7, 7),
-                              sampling_ratio: int = 2) -> torch.Tensor:
+                              image_size, output_size=(7, 7), sampling_ratio: int = 2,
+                              route: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel wrapper: CUDA level maps [B, C, H_l, W_l] in channels_last
     memory (NHWC bytes), float32 boxes [B, N, 4] -> [B, N, oh, ow, C] in the
-    maps' dtype."""
+    maps' dtype. ``route``, a uint8 tensor [B, N] if given, receives each
+    RoI's level (its ``assign_fpn_levels``, which the kernel computes) times
+    2, plus 1 where the kernel staged its footprint in shared memory and 0
+    where it read the corners directly."""
     global launches
     _check(features, boxes, sampling_ratio)
     dev = boxes.device
-    if not all(t.is_cuda and t.device == dev for t in (*features, boxes)):
+    if route is not None and (route.dtype != torch.uint8 or route.shape != boxes.shape[:2]
+                              or not route.is_contiguous()):
+        raise ValueError("route must be a contiguous uint8 tensor [B, N]")
+    extra = () if route is None else (route,)
+    if not all(t.is_cuda and t.device == dev for t in (*features, boxes, *extra)):
         raise ValueError("multiscale_roi_align_cuda needs all its tensors on one CUDA device")
     if not all(f.permute(0, 2, 3, 1).is_contiguous() for f in features):
         raise ValueError("multiscale_roi_align_cuda needs channels_last level maps")
@@ -97,7 +161,6 @@ def multiscale_roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Ten
     out = torch.empty((b, n, oh, ow, c), dtype=features[0].dtype, device=dev)
     if b * n == 0:
         return out
-    levels = assign_fpn_levels(boxes, len(features))
     args = []
     for i in range(MAX_LEVELS):
         if i < len(features):
@@ -108,8 +171,9 @@ def multiscale_roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Ten
             args += [None, 0, 0, 0.0]
     with torch.cuda.device(dev):
         err = _function()(_DTYPE_CODE[features[0].dtype], len(features), *args,
-                          boxes.data_ptr(), levels.data_ptr(), out.data_ptr(), b * n, n, c,
-                          oh, ow, int(sampling_ratio), torch.cuda.current_stream(dev).cuda_stream)
+                          boxes.data_ptr(), out.data_ptr(),
+                          None if route is None else route.data_ptr(), b * n, n, c, oh, ow,
+                          int(sampling_ratio), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"RoIAlign kernel failed to launch: CUDA error {err}")
     launches += 1

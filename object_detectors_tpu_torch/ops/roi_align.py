@@ -46,50 +46,65 @@ def assign_fpn_levels(boxes: torch.Tensor, num_levels: int, canonical_scale: int
     return (k - min_level).clamp(0, num_levels - 1).to(torch.int32)
 
 
+def axis_samples(lo: torch.Tensor, bin_size: torch.Tensor, out: int, s: int,
+                 size: torch.Tensor):
+    """The samples of each RoI along one axis: start ``lo`` [N], bin size
+    [N] and the map's size [N] (float) -> (outside, i0, i1, frac), each
+    [N, out, s]: sample k of bin i sits at lo + (i + (k + 0.5) / s) * bin;
+    outside [-1, size] it counts 0, else it clamps to [0, size - 1] and
+    interpolates between i0 = its floor and i1 = min(i0 + 1, size - 1) with
+    weight ``frac`` on i1."""
+    dev = lo.device
+    i = torch.arange(out, dtype=torch.float32, device=dev)
+    k = torch.arange(s, dtype=torch.float32, device=dev) + 0.5
+    # Divisors are tensors: on the GPU PyTorch turns a division by a Python
+    # number into a multiplication by its reciprocal, which rounds otherwise
+    # than the division of the kernel and of the reference.
+    k = k / torch.full_like(k, s)
+    pos = lo[:, None, None] + (i[None, :, None] + k[None, None, :]) * bin_size[:, None, None]
+    size = size[:, None, None]
+    outside = (pos < -1.0) | (pos > size)
+    c = torch.minimum(pos.clamp(min=0.0), size - 1)
+    i0 = torch.floor(c)
+    return outside, i0, torch.minimum(i0 + 1, size - 1), c - i0
+
+
+def roi_samples(boxes: torch.Tensor, scale: torch.Tensor, height: torch.Tensor,
+                width: torch.Tensor, output_size, sampling_ratio: int):
+    """``axis_samples`` along y and x of boxes [N, 4] scaled by ``scale``
+    [N] on maps of ``height`` x ``width`` [N]: bin = max(side, 1) / out."""
+    oh, ow = output_size
+    b = boxes * scale[:, None]
+    x1, y1, x2, y2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
+    bin_w = (x2 - x1).clamp(min=1.0) / torch.full_like(x1, ow)
+    bin_h = (y2 - y1).clamp(min=1.0) / torch.full_like(y1, oh)
+    return (axis_samples(y1, bin_h, oh, sampling_ratio, height),
+            axis_samples(x1, bin_w, ow, sampling_ratio, width))
+
+
 def _pool_flat(flat: torch.Tensor, boxes: torch.Tensor, scale: torch.Tensor,
                height: torch.Tensor, width: torch.Tensor, offset: torch.Tensor,
                output_size, sampling_ratio: int) -> torch.Tensor:
     """Bilinear pooling from a flat [R, C] buffer: RoI n reads the map of
     ``height[n]`` x ``width[n]`` rows starting at ``offset[n]`` at
     ``scale[n]``. -> [N, oh, ow, C] float32."""
-    oh, ow = output_size
-    s = sampling_ratio
-    n = boxes.shape[0]
-    dev = boxes.device
-    b = boxes * scale[:, None]
-    x1, y1, x2, y2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
-    # Divisors are tensors: on the GPU PyTorch turns a division by a Python
-    # number into a multiplication by its reciprocal, which rounds otherwise
-    # than the division of the kernel and of the reference.
-    bin_w = (x2 - x1).clamp(min=1.0) / torch.full_like(x1, ow)
-    bin_h = (y2 - y1).clamp(min=1.0) / torch.full_like(y1, oh)
+    (oy, y0, y1i, ly), (ox, x0, x1i, lx) = roi_samples(boxes, scale, height, width,
+                                                       output_size, sampling_ratio)
 
-    iy = torch.arange(oh, dtype=torch.float32, device=dev)
-    ix = torch.arange(ow, dtype=torch.float32, device=dev)
-    k = torch.arange(s, dtype=torch.float32, device=dev) + 0.5
-    k = k / torch.full_like(k, s)
-    ys = y1[:, None, None] + (iy[None, :, None] + k[None, None, :]) * bin_h[:, None, None]
-    xs = x1[:, None, None] + (ix[None, :, None] + k[None, None, :]) * bin_w[:, None, None]
-    ys = ys[:, :, None, :, None].expand(n, oh, ow, s, s)  # [N, oh, ow, s, s]
-    xs = xs[:, None, :, None, :].expand(n, oh, ow, s, s)
+    def ys(t):  # [N, oh, s] -> [N, oh, 1, s, 1]
+        return t[:, :, None, :, None]
 
-    hh = height[:, None, None, None, None]
-    ww = width[:, None, None, None, None]
-    outside = (ys < -1.0) | (ys > hh) | (xs < -1.0) | (xs > ww)
-    y = torch.minimum(ys.clamp(min=0.0), hh - 1)
-    x = torch.minimum(xs.clamp(min=0.0), ww - 1)
-    y0 = torch.floor(y)
-    x0 = torch.floor(x)
-    y1i = torch.minimum(y0 + 1, hh - 1)
-    x1i = torch.minimum(x0 + 1, ww - 1)
-    ly = (y - y0)[..., None]
-    lx = (x - x0)[..., None]
+    def xs(t):  # [N, ow, s] -> [N, 1, ow, 1, s]
+        return t[:, None, :, None, :]
 
+    outside = ys(oy) | xs(ox)
+    ly = ys(ly)[..., None]
+    lx = xs(lx)[..., None]
     row = offset[:, None, None, None, None]
     w_i = width.long()[:, None, None, None, None]
 
     def at(yi, xi):
-        return flat[row + yi.long() * w_i + xi.long()].float()
+        return flat[row + ys(yi).long() * w_i + xs(xi).long()].float()
 
     out = ((1.0 - ly) * (1.0 - lx) * at(y0, x0) + (1.0 - ly) * lx * at(y0, x1i)
            + ly * (1.0 - lx) * at(y1i, x0) + ly * lx * at(y1i, x1i))

@@ -215,3 +215,23 @@ def test_greedy_nms_cuda_wrapper_checks_its_inputs():
         K.greedy_nms_cuda(b, s, 0.5, 4, valid=torch.from_numpy(valid).int())
     with pytest.raises(ValueError, match="boxes"):
         K.greedy_nms_cuda(b[0], s, 0.5, 4)
+
+
+@pytest.mark.parametrize("groups,n,words", [(80, 1000, 16), (16, 2000, 32), (16, 1000, 16),
+                                            (3, 1, 2), (3, 63, 2), (3, 64, 2), (3, 65, 2),
+                                            (3, 129, 4), (1, 4096, 64), (2, 0, 0)])
+def test_greedy_nms_kernel_scratch(groups, n, words):
+    """The NMS kernel's scratch: sorted order, boxes, areas and live counts
+    per group, and one bit per later box in ceil(n / 64) words a row,
+    rounded up to even: 10 MB at the RPN call (80 x 1000), 8 MB at
+    RetinaNet's (16 x 2000)."""
+    nbytes, (order, boxes, area, live, mask) = K.scratch_layout(groups, n)
+    assert words % 2 == 0 and words - 2 < -(-n // K.CHUNK) <= words
+    parts = sorted([(mask, groups * n * words * 8), (boxes, groups * n * 16),
+                    (order, groups * n * 4), (area, groups * n * 4), (live, groups * 4)])
+    assert mask == 0 and all(off % 16 == 0 for off, _ in parts)
+    for (off, size), (nxt, _) in zip(parts, parts[1:] + [(nbytes, 0)]):
+        assert off + size <= nxt  # no part overlaps the next
+    assert nbytes < sum(size for _, size in parts) + 16 * len(parts)
+    if (groups, n) in ((80, 1000), (16, 2000)):
+        assert groups * n * words * 8 in (10_240_000, 8_192_000)

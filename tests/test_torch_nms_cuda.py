@@ -1,7 +1,8 @@
 """The greedy NMS kernel (object_detectors_tpu_torch/csrc/nms.cu) against
 its plain PyTorch version on the GPU: kept indices and valid flags must be
-identical. Imports no JAX, so that it runs on a machine with a card and
-without JAX:
+identical, across one to 64 mask chunks, with K below, at and above the
+kept count and the K-th kept box on either side of a chunk boundary. Imports
+no JAX, so that it runs on a machine with a card and without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_nms_cuda.py
 """
@@ -56,3 +57,72 @@ def test_kernel_all_dead_and_too_many_boxes():
     with pytest.raises(ValueError, match="at most"):
         K.greedy_nms_cuda(torch.zeros(1, big, 4, device="cuda"), torch.zeros(1, big, device="cuda"),
                           0.5, 10)
+
+
+def _spread(seed, groups, n, size=640.0):
+    """Boxes spread over the image with distinct scores: most are kept, so
+    the kept set runs through every 64-box chunk."""
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(groups, n, 2) * size
+    wh = 10 + rng.rand(groups, n, 2) * 60
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (boxes, rng.rand(groups, n).astype(np.float32))]
+
+
+def _assert_equal_for_ks(boxes, scores, thr, ks, valid=None):
+    """The kernel at every K equals the plain version's first K kept boxes."""
+    ref_keep, ref_ok = K.greedy_nms_reference(boxes, scores, thr, max(ks), valid)
+    for k in ks:
+        keep, ok = K.greedy_nms_cuda(boxes, scores, thr, k, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, ref_keep[:, :k]) and torch.equal(ok, ref_ok[:, :k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 2000, 4096])
+def test_kernel_equals_plain_at_every_chunk_count(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    boxes, scores = _spread(n, 3, n)
+    keep, ok = K.greedy_nms_reference(boxes, scores, 0.5, n)
+    kept = int(ok.sum(1).min())
+    # greedy position of each kept box of group 0, to put the K-th kept box
+    # on the last place of a 64-box chunk and on the first of the next
+    order = torch.sort(scores[0], descending=True, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=order.device)
+    pos = rank[keep[0][ok[0]].long()]
+    edge = [int((pos < 64 * c).sum()) for c in range(1, n // 64 + 1)]
+    ks = {1, max(kept - 1, 1), kept, kept + 1, n, n + 5}
+    ks |= {e + d for e in edge[:3] for d in (0, 1) if e + d >= 1}
+    _assert_equal_for_ks(boxes, scores, 0.5, sorted(ks))
+
+
+@pytest.mark.cuda
+def test_kernel_ties_nan_dead_and_uneven_live_counts():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    boxes, scores, valid = _clustered(11, 4, 700)
+    tied = torch.full_like(scores, 0.5)
+    nan = scores.clone()
+    nan[:, ::3] = float("nan")
+    uneven = scores.clone()
+    uneven[0, 10:] = float("-inf")   # 10 live boxes
+    uneven[1] = float("-inf")        # none
+    uneven[2, 130:] = float("-inf")  # three chunks, the last one partly
+    for s in (tied, nan, uneven, torch.full_like(scores, float("-inf"))):
+        _assert_equal_for_ks(boxes, s, 0.5, [1, 64, 100, 700])
+    _assert_equal_for_ks(boxes, scores, 0.5, [5, 700], torch.zeros_like(valid))
+    _assert_equal_for_ks(boxes, uneven, 0.5, [64, 700], valid)
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_retinanet_shape():
+    """16 x 2000 candidates, K 300, boxes offset by class as batched_nms
+    offsets them: boxes of different classes never overlap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    boxes, scores, _ = _clustered(12, 16, 2000)
+    labels = torch.from_numpy(np.random.RandomState(13).randint(0, 91, (16, 2000))).cuda()
+    offset = labels.float()[..., None] * (boxes.amax(dim=(1, 2))[:, None, None] + 1.0)
+    _assert_equal_for_ks((boxes + offset).contiguous(), scores, 0.5, [300])

@@ -137,3 +137,71 @@ def test_one_pixel_level_follows_the_flat_pooler():
                                                 jnp.asarray(boxes), (32, 32))
     np.testing.assert_allclose(out.numpy(), np.asarray(flat), rtol=1e-4, atol=1e-5)
     assert np.abs(np.asarray(canvas) - np.asarray(flat)).max() > 0.1
+
+
+@pytest.mark.parametrize("levels,output_size", [(1, (7, 7)), (1, (14, 14)), (4, (7, 7)),
+                                                (4, (14, 14))])
+def test_staging_window_holds_every_corner_the_plain_pooler_reads(levels, output_size):
+    """The rule by which the RoIAlign kernel stages a RoI's footprint
+    (kernels/roi_align.py:staging_window) against the sample positions of
+    the plain pooler (ops/roi_align.py:roi_samples, which _pool_flat reads):
+    the listed rows and columns are exactly the corners of the samples
+    inside the map, ascending; on P2 alone some footprints are over the
+    stage and one is exactly at it."""
+    feats, boxes = _setup(seed=4, n=30)
+    boxes[0, :len(EXTREME) + 8] = EXTREME + [[10, 10, 76, 34], [10, 10, 76, 72],
+                                             [10, 10, 130, 130], [10, 10, 90, 166],
+                                             [-50, -40, 30, 20], [0, 0, 112, 112],
+                                             [0, 0, 224, 224], [40, 40, 30, 30]]
+    maps = nchw(feats)[:levels]
+    rows, cols = K.staging_window(maps, torch.from_numpy(boxes), (SIZE, SIZE), output_size)
+    oh, ow = output_size
+    assert rows.shape == (*boxes.shape[:2], 2 * oh * 2) and cols.shape[-1] == 2 * ow * 2
+    flat = torch.from_numpy(boxes).reshape(-1, 4)
+    sizes = [m.shape[-2:] for m in maps]
+    lv = R.assign_fpn_levels(flat, levels).long()
+    scale = torch.tensor([R._infer_scale(hw, (SIZE, SIZE)) for hw in sizes])[lv]
+    hw = torch.tensor([[float(h), float(w)] for h, w in sizes])[lv]
+    (oy, y0, y1, _), (ox, x0, x1, _) = R.roi_samples(flat, scale, hw[:, 0], hw[:, 1],
+                                                     output_size, 2)
+    foot = []
+    for i in range(flat.shape[0]):
+        for listed, outside, i0, i1 in ((rows.view(-1, rows.shape[-1])[i], oy[i], y0[i], y1[i]),
+                                        (cols.view(-1, cols.shape[-1])[i], ox[i], x0[i], x1[i])):
+            n = int((listed >= 0).sum())
+            corners = set(i0[~outside].long().tolist()) | set(i1[~outside].long().tolist())
+            assert listed[:n].tolist() == sorted(corners) and (listed[n:] == -1).all()
+        foot.append(int((rows.view(-1, rows.shape[-1])[i] >= 0).sum())
+                    * int((cols.view(-1, cols.shape[-1])[i] >= 0).sum()))
+    assert max(foot) <= (2 * oh * 2) * (2 * ow * 2)
+    if levels == 1:
+        assert max(foot) > K.STAGE_PIXELS  # these read their corners directly
+        if output_size == (7, 7):
+            assert K.STAGE_PIXELS in foot  # [10, 10, 76, 72]: 16 x 17 on P2
+            assert K.STAGE_PIXELS // 2 in foot  # [10, 10, 76, 34]: 8 x 17, two slice buffers
+
+
+@pytest.mark.parametrize("dtype,c,offset,vectors", [
+    (torch.bfloat16, 256, 0, True), (torch.bfloat16, 8, 0, True), (torch.bfloat16, 12, 0, False),
+    (torch.bfloat16, 256, 8, True), (torch.bfloat16, 256, 4, False), (torch.float32, 4, 0, True),
+    (torch.float32, 3, 0, False), (torch.float32, 256, 1, False)])
+def test_staged_rois_needs_16_byte_channel_runs_on_aligned_maps(dtype, c, offset, vectors):
+    """The kernel's branch as kernels/roi_align.py:staged_rois states it: the
+    footprint rule (staging_window's rows x columns <= STAGE_PIXELS) where
+    the channels are whole 16-byte runs and every level map starts on a
+    16-byte boundary (here P3 starts ``offset`` elements into its buffer),
+    no RoI staged otherwise."""
+    boxes = torch.tensor([[[10, 10, 76, 72], [10, 10, 76, 34], [0, 0, 250, 250],
+                           [10, 10, 90, 166], [30, 40, 50, 60], [100, 20, 180, 90]]])
+    maps = []
+    for stride, skip in ((4, 0), (8, offset)):
+        h = SIZE // stride
+        buf = torch.zeros(skip + h * h * c, dtype=dtype)
+        assert buf.data_ptr() % 16 == 0
+        maps.append(buf[skip:].view(1, h, h, c).permute(0, 3, 1, 2))
+    staged, foot = K.staged_rois(maps, boxes, (SIZE, SIZE))
+    rows, cols = K.staging_window(maps, boxes, (SIZE, SIZE))
+    assert torch.equal(foot, (rows >= 0).sum(-1) * (cols >= 0).sum(-1))
+    assert foot[0, :2].tolist() == [K.STAGE_PIXELS, K.STAGE_PIXELS // 2]
+    assert torch.equal(staged, (foot <= K.STAGE_PIXELS) & vectors)
+    assert bool(staged.any()) == vectors and not bool(staged.all())
