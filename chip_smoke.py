@@ -15,14 +15,37 @@ Phases, each printed as JSON lines:
 4. e2e: full-width YOLOv3 (Darknet-53, 80 classes, 640², bf16, seeded random
    weights) through ``build_pipeline_uint8`` at batch 128 (the batch of the
    JAX bench's ``yolo640`` row) on three distinct pre-staged uint8 batches:
-   2 warm-up calls, 10 timed calls, one final sync. The kernel's launch
-   count is set to 0 before and read after. Then a line at batch 64 (the
-   batch of the earlier runs), and the kernel alone timed with CUDA events
-   beside its bound and its plain version.
+   2 warm-up calls, 10 timed calls, one final sync. The normalize and NMS
+   kernels' launch counts are set to 0 before and read after (one each a
+   call). Then a line at batch 64 (the batch of the earlier runs), and the
+   kernel alone timed with CUDA events beside its bound and its plain
+   version.
 5. consistency: two images through the port in f32 on the GPU (TF32 off) and
    on the CPU; raw outputs must agree within the stated tolerance, and
    ``nms_majority`` must give identical results on both devices.
-6. kernel (roi_align, nms): the RoIAlign kernel against its plain version at
+6. serving: the port bench's serving row (``run_serving``: 256 requests,
+   YOLO top-512 and RetinaNet at 4:1, flushes of 64 and 16 from a 32-image
+   pool on the card, after a warm-up stream of 80): images/s, the
+   responses' p50 and p99 latency, the flushes per model and their sizes,
+   256 distinct request ids, one normalize and one NMS launch a flush;
+   every response bitwise equal to its row of its flush's batch run again
+   through its pipeline (same card, same batch shape); one flush of each
+   model dispatched under the sync debug mode with no host sync.
+7. yolo_lvis416: the port bench's row (1203 classes, 416², batch 16,
+   top-300, 300 detections): images/s and the launches of its 11 calls;
+   two images in f32 (TF32 off) on the GPU and the CPU: raw maps within
+   RAW_RTOL, ``nms_majority`` identical.
+8. nms_majority: at yolo640's candidates (128 x 256), a serving YOLO
+   flush's (64 x 512), yolo_lvis416's (16 x 300, 1203 classes) and the
+   bench's three NMS distributions (512 x 256): identical to the scan
+   method and to the port on the CPU, one NMS kernel launch a call, and a
+   call under ``torch.cuda.set_sync_debug_mode("error")``; its time beside
+   the scan's and the kernel's at the call's inputs beside its bound.
+9. nms_latency: the port bench's ``run_nms_latency``: p50 and max-of-means
+   in microseconds an image at the three distributions.
+10. yolo_neck: full-width YOLOv3-SPP and YOLOv3 with the FPN neck on two
+   320² images in f32 (TF32 off), GPU against CPU within RAW_RTOL.
+11. kernel (roi_align, nms): the RoIAlign kernel against its plain version at
    the Faster R-CNN shape and at ragged ones (tolerances at ROI_*), with the
    level it computed for each RoI against ``assign_fpn_levels`` (boxes at
    the LevelMapper boundaries too) and each RoI's branch (footprint staged
@@ -31,7 +54,7 @@ Phases, each printed as JSON lines:
    its plain version on clustered candidates at both of the path's call
    shapes, with exact score ties and with every box dead, at RetinaNet's
    shape and at 4096 spread boxes with K at 64-box chunk edges.
-7. frcnn_e2e: full-width Faster R-CNN R50-FPN (91 classes, 640², bf16,
+12. frcnn_e2e: full-width Faster R-CNN R50-FPN (91 classes, 640², bf16,
    seeded random weights) through ``build_frcnn_pipeline_uint8`` at batch 16
    on three distinct pre-staged uint8 batches: 2 warm-up calls, 8 timed
    calls, one final sync; every kernel's launch count is set to 0 before the
@@ -41,12 +64,12 @@ Phases, each printed as JSON lines:
    L2 before (every sample's corners) and after (each footprint once); for
    NMS the kept counts and the device time of its sort, mask and sweep
    launches from a torch.profiler trace.
-8. frcnn_consistency: one image in f32 (TF32 off) on the GPU and on the CPU:
+13. frcnn_consistency: one image in f32 (TF32 off) on the GPU and on the CPU:
    FPN maps and RPN outputs within the stated tolerance; the RoIAlign kernel
    against the plain version on the CPU for the same proposals; the NMS
    kernel identical to the plain version on the CPU on the RPN's real
    per-level candidates.
-9. kernel (fused_block): the fused bottleneck kernel against its plain
+14. kernel (fused_block): the fused bottleneck kernel against its plain
    version (TF32 off) at the five ResNet-50 block shapes of a 640² batch of
    16 and at odd shapes of both variants (v4: TMA + wgmma, for channels
    that are multiples of 64; v2: mma.sync, for the tests' tiny blocks), with
@@ -57,24 +80,25 @@ Phases, each printed as JSON lines:
    once (folded weights in the kernel's layout), its time beside the plain
    version's, the bound, the unfused cuDNN block's, the TFLOP/s and the
    weight bytes the design moves from L2 a launch.
-10. retinanet_e2e: full-width RetinaNet R50-FPN (91 classes, 640², bf16,
+15. retinanet_e2e: full-width RetinaNet R50-FPN (91 classes, 640², bf16,
    seeded random weights) through ``build_retinanet_pipeline_uint8`` at
    batch 16, timed as frcnn_e2e, with the backbone unfused and then fused
    (``backbone_fused="auto"``: 13 kernel launches a call); every kernel's
    launch count is set to 0 before each timed run and read after.
-11. frcnn_fused: frcnn640's backbone+FPN alone with the backbone unfused and
+16. frcnn_fused: frcnn640's backbone+FPN alone with the backbone unfused and
    fused, and the batch-norm fold: cold (caches emptied: fold, kernel
    layout, TMA descriptors of the 13 blocks, device time) and warm (a
    forward that finds every block's cache: folds counted, device work traced,
    and the host time of the cache check).
-12. retinanet_post: the postprocess on seeded live bf16 logits [16, 76725,
+17. retinanet_post: the postprocess on seeded live bf16 logits [16, 76725,
    91] around the score threshold, on the GPU and on the CPU: labels, valid
    and order identical, boxes and scores within the stated tolerance; the
    NMS kernel timed at its shape there (16 x 2000, K 300), with its phases.
-13. retinanet_consistency: one image in f32 (TF32 off) on the GPU and on
+18. retinanet_consistency: one image in f32 (TF32 off) on the GPU and on
    the CPU: the head's outputs within the stated tolerance.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (only numbers this run
+measured, and the bounds); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 
@@ -85,11 +109,13 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 BATCH, IMG, NUM_CLASSES = 128, 640, 80
+LVIS_BATCH, LVIS_IMG, LVIS_CLASSES = 16, 416, 1203
 FRCNN_BATCH, FRCNN_CLASSES = 16, 91
 RETINA_BATCH, RETINA_CLASSES = 16, 91
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
@@ -100,7 +126,7 @@ RAW_RTOL = RAW_ATOL = 1e-3      # f32 GPU vs CPU raw maps (see phase 5)
 # rounding of that f32 result, so one bf16 ulp (2^-7 relative) on top.
 ROI_F32_RTOL, ROI_F32_ATOL = 1e-4, 1e-5
 ROI_BF16_RTOL, ROI_BF16_ATOL = 2 ** -7, 1e-5
-FEAT_RTOL = FEAT_ATOL = 1e-3    # f32 GPU vs CPU FPN maps and RPN outputs (phase 8)
+FEAT_RTOL = FEAT_ATOL = 1e-3    # f32 GPU vs CPU FPN maps and RPN outputs (phase 13)
 IOU_OPS = 13                    # f32 operations of one IoU and its compare
 # fused bottleneck kernel vs plain, and its bf16 output against the plain
 # chain: the tolerance of tests/test_fused_block.py (bf16 + BN-fold rounding)
@@ -185,7 +211,7 @@ def phase_kernel(P):
     return worst
 
 
-def phase_e2e(P, PL):
+def phase_e2e(P, KN, PL):
     pipe = PL.build_pipeline_uint8(num_classes=NUM_CLASSES, img_size=IMG, device="cuda")
     rng = np.random.RandomState(0)
     host = [rng.randint(0, 255, (BATCH, IMG, IMG, 3), dtype=np.uint8) for _ in range(3)]
@@ -195,22 +221,26 @@ def phase_e2e(P, PL):
     for i in range(2):
         out = pipe(batches[i % 3])
     float(out[1].sum())  # host read
-    P.launches = 0
+    P.launches = KN.launches = 0
     t0 = time.perf_counter()
     outs = [pipe(batches[i % 3]) for i in range(10)]
     float(outs[-1][1].sum())  # one final sync
     dt = (time.perf_counter() - t0) / 10
-    launches = P.launches
+    launches, nms_launches = P.launches, KN.launches
 
     boxes, scores, labels, valid = outs[-1]
     check(tuple(boxes.shape) == (BATCH, 100, 4) and tuple(valid.shape) == (BATCH, 100),
           "e2e output shape")
     check(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()),
           "e2e output is not finite")
-    check(launches > 0, "the e2e run did not launch the preprocess kernel")
+    check(launches == 10, f"the e2e run launched the preprocess kernel {launches} times in "
+                          f"10 calls")
+    check(nms_launches == 10, f"the e2e run launched the NMS kernel {nms_launches} times in "
+                              f"10 calls")
     emit(phase="e2e", batch=BATCH, img=IMG, imgs_per_s=BATCH / dt, ms_per_batch=dt * 1e3,
          valid_detections=int(valid.sum()), preprocess_launches=launches,
-         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+         nms_launches=nms_launches, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    candidates = pipe.candidates(batches[0])
     half = [b[:64] for b in batches]
     for i in range(2):
         out = pipe(half[i % 3])
@@ -231,8 +261,8 @@ def phase_e2e(P, PL):
     emit(phase="kernel_time", name="preprocess", shape=list(u8.shape), ms=ms,
          plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", bytes=moved,
          achieved_tb_per_s=moved / (ms * 1e-3) / 1e12)
-    return batches, dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by="bytes")
+    return batches, candidates, nms_launches, dict(launches=launches, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bound, bound_by="bytes")
 
 
 def clustered_candidates(seed: int, batch: int, n: int):
@@ -246,6 +276,22 @@ def clustered_candidates(seed: int, batch: int, n: int):
     scores = (0.1 + 0.9 * rng.randint(1, 50, (batch, n)) / 50).astype(np.float32)
     labels = rng.randint(0, NUM_CLASSES, (batch, n)).astype(np.int32)
     return [torch.from_numpy(a) for a in (boxes, scores, labels)]
+
+
+def same_nms(N, phase, name, b, s, c, v, num_classes=NUM_CLASSES, max_output=100,
+             method="fixedpoint"):
+    """nms_majority (IoU 0.6) on the GPU and on the CPU: identical, or
+    raise. Returns (the GPU's output, the kept count)."""
+    on_gpu = N.nms_majority(b.cuda(), s.cuda(), c.cuda(), num_classes, 0.6, max_output,
+                            valid=None if v is None else v.cuda(), method=method)
+    on_cpu = N.nms_majority(b.cpu(), s.cpu(), c.cpu(), num_classes, 0.6, max_output,
+                            valid=None if v is None else v.cpu(), method=method)
+    identical = all(torch.equal(x.cpu(), y) for x, y in zip(on_gpu, on_cpu))
+    kept = int(on_cpu[3].sum())
+    emit(phase=phase, what=f"nms_majority {name} ({method})", identical=identical,
+         candidates=list(s.shape), num_classes=num_classes, kept=kept)
+    check(identical, f"nms_majority differs between GPU and CPU on {name}")
+    return on_gpu, kept
 
 
 def phase_consistency(PL, N, u8):
@@ -268,24 +314,12 @@ def phase_consistency(PL, N, u8):
     finally:
         torch.backends.cudnn.allow_tf32 = allow
 
-    def same_nms(name, b, s, c, v, method="fixedpoint"):
-        on_gpu = N.nms_majority(b.cuda(), s.cuda(), c.cuda(), NUM_CLASSES, 0.6, 100,
-                                valid=None if v is None else v.cuda(), method=method)
-        on_cpu = N.nms_majority(b.cpu(), s.cpu(), c.cpu(), NUM_CLASSES, 0.6, 100,
-                                valid=None if v is None else v.cpu(), method=method)
-        identical = all(torch.equal(x.cpu(), y) for x, y in zip(on_gpu, on_cpu))
-        kept = int(on_cpu[3].sum())
-        emit(phase="consistency", what=f"nms_majority {name} ({method})", identical=identical,
-             candidates=list(s.shape), kept=kept)
-        check(identical, f"nms_majority differs between GPU and CPU on {name}")
-        return on_gpu, kept
-
-    same_nms("pipeline top-k, conf mask", boxes, scores, labels, valid)
-    same_nms("pipeline top-k, all valid", boxes, scores, labels, None)
+    same_nms(N, "consistency", "pipeline top-k, conf mask", boxes, scores, labels, valid)
+    same_nms(N, "consistency", "pipeline top-k, all valid", boxes, scores, labels, None)
     cb, cs, cl = clustered_candidates(1, 4, 256)
-    fixed, kept = same_nms("clustered", cb, cs, cl, cs > 0.1)
+    fixed, kept = same_nms(N, "consistency", "clustered", cb, cs, cl, cs > 0.1)
     check(0 < kept < cs.numel(), "clustered case kept nothing or suppressed nothing")
-    scan, _ = same_nms("clustered", cb, cs, cl, cs > 0.1, method="scan")
+    scan, _ = same_nms(N, "consistency", "clustered", cb, cs, cl, cs > 0.1, method="scan")
     check(all(torch.equal(a, b) for a, b in zip(fixed, scan)),
           "fixed point and scan disagree on the GPU")
 
@@ -473,6 +507,42 @@ def greedy_iou_count(boxes, scores, keep, ok, thr) -> int:
     return int(((first + 1) * suppressed).sum()) + int((n_kept * (n_kept - 1) // 2).sum())
 
 
+def nms_kernel_calls(KN, fn):
+    """Run fn() with the NMS kernel's wrapper watched: the arguments of every
+    call it made."""
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return greedy_nms_cuda(*args, **kwargs)
+
+    greedy_nms_cuda, KN.greedy_nms_cuda = KN.greedy_nms_cuda, spy
+    try:
+        fn()
+    finally:
+        KN.greedy_nms_cuda = greedy_nms_cuda
+    return calls
+
+
+def nms_kernel_time(KN, b, s, thr, k, valid=None, plain_iters=2):
+    """The NMS kernel at one call's inputs: its time and its plain version's
+    (CUDA events), its bound (each input read and each output written once,
+    against the IoUs its kept set needs at least) and the kept count."""
+    keep, ok = KN.greedy_nms_cuda(b, s, thr, k, valid)
+    ms = cuda_ms(lambda: KN.greedy_nms_cuda(b, s, thr, k, valid), 20)
+    plain_ms = cuda_ms(lambda: KN.greedy_nms_reference(b, s, thr, k, valid), plain_iters)
+    moved = ((b.numel() + s.numel() + keep.numel()) * 4 + ok.numel()
+             + (0 if valid is None else valid.numel()))
+    live = s if valid is None else torch.where(valid, s, float("-inf"))
+    ious = greedy_iou_count(b, live, keep, ok, thr)
+    bound, bound_by = time_bound(moved, ious * IOU_OPS)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                kept=int(ok.sum()), bytes=moved, ious=ious, operations=ious * IOU_OPS)
+
+
+MEASURED_NMS = ("ms", "plain_ms", "bound_ms", "bound_by", "phases_ms")
+
+
 def nms_phase_ms(KN, boxes, scores, thr, k, iters=10):
     """The device time of each of the NMS kernel's three launches (sort,
     IoU mask, sweep) a call, from a torch.profiler trace."""
@@ -572,7 +642,6 @@ def phase_frcnn_e2e(PL, P, KR, KN, RPN):
 
     n = rpn.pre_nms_top_n_test
     nb, ns = cand_boxes.reshape(-1, n, 4), cand_scores.reshape(-1, n)
-    keep, ok = KN.greedy_nms_cuda(nb, ns, rpn.nms_thresh, n)
     check_nms(KN, "RPN path candidates", nb, ns, rpn.nms_thresh, n)
     timings = {}
     for case, (b, s, thr, k) in {
@@ -580,18 +649,13 @@ def phase_frcnn_e2e(PL, P, KR, KN, RPN):
             "postprocess shape, clustered": (
                 *[t.cuda() for t in clustered_candidates(4, FRCNN_BATCH, 1000)[:2]], 0.5, 100),
     }.items():
-        keep, ok = KN.greedy_nms_cuda(b, s, thr, k)
-        ms = cuda_ms(lambda: KN.greedy_nms_cuda(b, s, thr, k), 20)
-        plain_ms = cuda_ms(lambda: KN.greedy_nms_reference(b, s, thr, k), 2)
-        moved = b.numel() * 4 + s.numel() * 4 + keep.numel() * 4 + ok.numel()
-        ious = greedy_iou_count(b, s, keep, ok, thr)
-        bound, bound_by = time_bound(moved, ious * IOU_OPS)
-        timings[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                             phases_ms=nms_phase_ms(KN, b, s, thr, k))
+        t = nms_kernel_time(KN, b, s, thr, k)
+        t["phases_ms"] = nms_phase_ms(KN, b, s, thr, k)
+        timings[case] = t
         emit(phase="kernel_time", name="nms", case=case, groups=s.shape[0], n=s.shape[1], k=k,
-             kept=int(ok.sum()), bytes=moved, ious=ious, operations=ious * IOU_OPS,
-             launches_per_batch=launches["nms"] / iters, library_ms=None, **timings[case])
-    nms = dict(launches=launches["nms"], max_abs_err=0.0, **timings["RPN path candidates"])
+             launches_per_batch=launches["nms"] / iters, library_ms=None, **t)
+    nms = dict(launches=launches["nms"], max_abs_err=0.0,
+               **{key: timings["RPN path candidates"][key] for key in MEASURED_NMS})
     return batches, launches, roi, nms
 
 
@@ -732,7 +796,8 @@ def phase_fused_block_kernel(KF):
                 if count:
                     bound, by, moved, ops = fused_bound(b, h, w, cin, cm, cout, down)
                     weights = cin * cm + 9 * cm * cm + cm * cout + (cin * cout if down else 0)
-                    t = dict(count=count, variant=cfg["variant"], cluster=cfg["cluster"],
+                    t = dict(shape=line["shape"], count=count, variant=cfg["variant"],
+                             cluster=cfg["cluster"],
                              tile=[cfg["tile_h"], cfg["tile_w"]], ctas=cfg["ctas"],
                              l2_weight_bytes=cfg["ctas"] * weights * 2,
                              bound_ms=bound, bound_by=by, bytes=moved, operations=ops,
@@ -908,35 +973,21 @@ def phase_retinanet_post(RN, KN, pipe_anchors):
     torch.testing.assert_close(gpu[1], cpu[1], rtol=0, atol=SCORE_ATOL)
 
     # the NMS kernel alone at the inputs the GPU postprocess gave it
-    calls = []
-
-    def spy(*args, **kwargs):
-        calls.append((args, kwargs))
-        return greedy_nms_cuda(*args, **kwargs)
-
-    greedy_nms_cuda, KN.greedy_nms_cuda = KN.greedy_nms_cuda, spy
-    try:
+    def postprocess():
         with torch.inference_mode():
             RN.retinanet_postprocess(logits, reg, pipe_anchors, level_sizes, (IMG, IMG), cfg)
-    finally:
-        KN.greedy_nms_cuda = greedy_nms_cuda
+
+    calls = nms_kernel_calls(KN, postprocess)
     check(len(calls) == 1, f"the postprocess called the NMS kernel {len(calls)} times")
     (b, s, thr, k, valid), _ = calls[0]
     check(valid is None, "the postprocess passed the NMS kernel a valid mask")
-    keep, ok = KN.greedy_nms_cuda(b, s, thr, k)
     check_nms(KN, "RetinaNet postprocess, live logits", b, s, thr, k)
-    ms = cuda_ms(lambda: KN.greedy_nms_cuda(b, s, thr, k), 20)
-    plain_ms = cuda_ms(lambda: KN.greedy_nms_reference(b, s, thr, k), 2)
-    moved = b.numel() * 4 + s.numel() * 4 + keep.numel() * 4 + ok.numel()
-    ious = greedy_iou_count(b, s, keep, ok, thr)
-    bound, bound_by = time_bound(moved, ious * IOU_OPS)
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                  phases_ms=nms_phase_ms(KN, b, s, thr, k))
+    t = nms_kernel_time(KN, b, s, thr, k)
+    t["phases_ms"] = nms_phase_ms(KN, b, s, thr, k)
     emit(phase="kernel_time", name="nms", case="RetinaNet postprocess, live logits",
-         groups=s.shape[0], n=s.shape[1], k=k, kept=int(ok.sum()),
-         live=int((s > float("-inf")).sum()), bytes=moved, ious=ious,
-         operations=ious * IOU_OPS, library_ms=None, **timing)  # torchvision is not a dependency
-    return timing
+         groups=s.shape[0], n=s.shape[1], k=k, live=int((s > float("-inf")).sum()),
+         library_ms=None, **t)  # torchvision is not a dependency
+    return {key: t[key] for key in MEASURED_NMS}
 
 
 def phase_retinanet_consistency(PL, P, u8):
@@ -961,6 +1012,197 @@ def phase_retinanet_consistency(PL, P, u8):
     check(outs["cuda"][2] == outs["cpu"][2], "level sizes differ between devices")
 
 
+def phase_serving(B, S, P, KN):
+    """The bench's serving row: 256 requests, YOLO and RetinaNet at 4:1,
+    flushes of 64 and 16 from a 32-image pool on the card. Every response
+    against its flush's batch recomputed through its pipeline; one flush of
+    each model dispatched under the sync debug mode. Returns (images/s,
+    launches by kernel, candidates of the first YOLO flush's batch)."""
+    log = []
+    flush = S.BatchedDetectionServer._flush
+
+    def watched(self, model):
+        q = self.queues[model]
+        reqs = [q[i][0] for i in range(min(len(q), self.batch_size[model]))]
+        log.append((model, [r.request_id for r in reqs], [r.image for r in reqs]))
+        return flush(self, model)
+
+    S.BatchedDetectionServer._flush = watched
+    P.launches = KN.launches = 0
+    try:
+        ips, out, server = B.run_serving()
+    finally:
+        S.BatchedDetectionServer._flush = flush
+    launches = {"preprocess": P.launches, "nms": KN.launches}
+    flushes = dict(server.flushes)  # the timed stream's
+    for name, n in launches.items():
+        check(n == len(log), f"serving launched the {name} kernel {n} times in {len(log)} "
+                             f"flushes")
+    ids = {r.request_id for r in out}
+    check(len(out) == len(ids) == 256, f"serving answered {len(out)} requests, "
+                                       f"{len(ids)} distinct")
+    # each response against its row of its flush's batch recomputed: the same
+    # card, the same batch shape
+    by_id = {r.request_id: r for r in out}
+    timed = log[len(log) - sum(flushes.values()):]
+    unequal = dict.fromkeys(server.pipelines, 0)
+    candidates = None
+    for model, rids, slots in timed:
+        bs = server.batch_size[model]
+        idx = torch.tensor(slots + slots[-1:] * (bs - len(slots)), device="cuda")
+        batch = server.pool.index_select(0, idx)
+        boxes, scores, labels, valid = [t.cpu().numpy() for t in server.pipelines[model](batch)]
+        if model == "yolo" and candidates is None and len(slots) == bs:
+            candidates = server.pipelines[model].candidates(batch)
+        for i, rid in enumerate(rids):
+            r = by_id[rid]
+            same = (np.array_equal(r.boxes.view(np.int32), boxes[i].view(np.int32))
+                    and np.array_equal(r.scores.view(np.int32), scores[i].view(np.int32))
+                    and np.array_equal(r.labels, labels[i]) and np.array_equal(r.valid, valid[i]))
+            unequal[model] += not same
+    # one flush of each model under the sync debug mode: no host sync
+    syncs = {}
+    for model, bs in server.batch_size.items():
+        for i in range(bs):
+            server.submit(S.Request(10_000 + i, model, i % 32))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                server._flush(model)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[model] = sum("called a synchronizing CUDA operation" in str(w.message)
+                           for w in caught)
+        server.drain()
+    latency = np.array([r.latency_s for r in out])
+    emit(phase="serving", requests=len(out), distinct_request_ids=len(ids), imgs_per_s=ips,
+         latency_p50_s=float(np.percentile(latency, 50)),
+         latency_p99_s=float(np.percentile(latency, 99)), flushes=flushes,
+         flush_sizes={m: [len(f[1]) for f in timed if f[0] == m] for m in server.pipelines},
+         launches=launches, flushes_with_warm_up=len(log),
+         valid_detections={m: int(sum(r.valid.sum() for r in out if r.model == m))
+                           for m in server.pipelines},
+         rows_not_equal_to_the_recomputed_batch=unequal, host_syncs_in_a_flush=syncs)
+    check(not any(unequal.values()), f"serving responses differ from their flushes' batches "
+                                     f"recomputed: {unequal}")
+    check(not any(syncs.values()), f"a serving flush synchronized with the host: {syncs}")
+    check(candidates is not None, "serving ran no full YOLO flush")
+    return ips, launches, candidates
+
+
+def phase_yolo_lvis(B, PL, N, P, KN):
+    """The bench's yolo_lvis416 row, then its candidates at batch 16, and two
+    images in f32 (TF32 off) on the GPU and the CPU: raw maps within
+    RAW_RTOL, nms_majority identical. Returns (launches by kernel, the
+    candidates)."""
+    P.launches = KN.launches = 0
+    ips, mfu = B.run_yolo_lvis()
+    launches = {"preprocess": P.launches, "nms": KN.launches}
+    calls = 2 + 8 + 1  # warm-up, timed, and the one FlopCounterMode counts
+    emit(phase="yolo_lvis416", batch=LVIS_BATCH, img=LVIS_IMG, num_classes=LVIS_CLASSES,
+         imgs_per_s=ips, ms_per_batch=LVIS_BATCH / ips * 1e3, mfu=mfu, calls=calls,
+         launches=launches)
+    for name, n in launches.items():
+        check(n == calls, f"yolo_lvis416 launched the {name} kernel {n} times in {calls} calls")
+    kw = dict(topk=300, max_det=300)
+    u8 = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 255, (LVIS_BATCH, LVIS_IMG, LVIS_IMG, 3), dtype=np.uint8)).cuda()
+    candidates = PL.build_pipeline_uint8(LVIS_CLASSES, LVIS_IMG, **kw).candidates(u8)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kw.update(dtype=torch.float32)
+        gpu = PL.build_pipeline_uint8(LVIS_CLASSES, LVIS_IMG, device="cuda", **kw)
+        cpu = PL.build_pipeline_uint8(LVIS_CLASSES, LVIS_IMG, device="cpu", **kw)
+        raw_gpu = [o.cpu() for o in gpu.raw_outputs(u8[:2])]
+        raw_cpu = cpu.raw_outputs(u8[:2].cpu())
+        for g, c in zip(raw_gpu, raw_cpu):
+            emit(phase="yolo_lvis416", what="raw, f32 GPU vs CPU", shape=list(g.shape),
+                 max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+            torch.testing.assert_close(g, c, rtol=RAW_RTOL, atol=RAW_ATOL)
+        boxes, scores, labels, valid = gpu.candidates(u8[:2])
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    same_nms(N, "yolo_lvis416", "f32 candidates of two images", boxes, scores, labels, valid,
+             LVIS_CLASSES, 300)
+    return launches, candidates
+
+
+def phase_nms_majority(N, KN, cases):
+    """nms_majority on the card at the YOLO paths' shapes and the bench's
+    three distributions: identical to the scan method and to the port on
+    the CPU, one NMS kernel launch a call and no host sync under the sync
+    debug mode; its time (CUDA events) beside the scan's, and the kernel's
+    at the call's inputs beside its bound. Returns the kernel's timings."""
+    timings = {}
+    for case, (b, s, c, v, classes, k) in cases.items():
+        def call(method="fixedpoint"):
+            return N.nms_majority(b, s, c, classes, 0.6, k, valid=v, method=method)
+
+        call()
+        torch.cuda.synchronize()
+        before = KN.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fixed = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = KN.launches - before
+        scan = call("scan")
+        cpu = N.nms_majority(b.cpu(), s.cpu(), c.cpu(), classes, 0.6, k,
+                             valid=None if v is None else v.cpu())
+        same_scan = all(torch.equal(x, y) for x, y in zip(fixed, scan))
+        same_cpu = all(torch.equal(x.cpu(), y) for x, y in zip(fixed, cpu))
+        (kb, ks, thr, kk, kv), _ = nms_kernel_calls(KN, call)[0]
+        t = nms_kernel_time(KN, kb, ks, thr, kk, kv)
+        timings[case] = {key: t[key] for key in MEASURED_NMS if key in t}
+        emit(phase="nms_majority", case=case, groups=s.shape[0], n=s.shape[1],
+             num_classes=classes, max_output=k, identical_to_scan=same_scan,
+             identical_to_cpu=same_cpu, kernel_launches_a_call=launches,
+             kept=int(fixed[3].sum()), ms=cuda_ms(call, 20),
+             scan_ms=cuda_ms(lambda: call("scan"), 3), kernel=t)
+        check(launches == 1, f"nms_majority launched the NMS kernel {launches} times ({case})")
+        check(same_scan and same_cpu, f"nms_majority differs from the scan or from the CPU "
+                                      f"({case})")
+        check(int(fixed[3].sum()) > 0, f"nms_majority kept nothing ({case})")
+    return timings
+
+
+def phase_nms_latency(B, KN):
+    """The bench's nms_p50_latency row. Returns the NMS kernel's launches."""
+    KN.launches = 0
+    res = B.run_nms_latency()
+    launches = KN.launches
+    emit(phase="nms_latency", batch=512, candidates=256, num_classes=80, max_output=100,
+         us_per_image=res, launches=launches)
+    check(launches == 3 * (3 + 7 * 20), f"nms_p50_latency launched the NMS kernel {launches} "
+                                        f"times")
+    return launches
+
+
+def phase_yolo_neck(PL, u8):
+    """Full-width YOLOv3-SPP and YOLOv3 with the FPN neck (80 classes,
+    seeded random weights) on two 320² images in f32 (TF32 off): raw maps on
+    the GPU and the CPU within RAW_RTOL."""
+    from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
+
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, head in (("YOLOv3-SPP", dict(use_spp=True)), ("FPN neck", dict(use_fpn=True))):
+            model = init_yolo_(YoloHead(NUM_CLASSES, 3, **head))
+            raw = {dev: [o.cpu() for o in PL.build_pipeline(
+                NUM_CLASSES, u8.shape[1], dtype=torch.float32, model=model, device=dev,
+                uint8=True).raw_outputs(u8.to(dev))] for dev in ("cuda", "cpu")}
+            for g, c in zip(raw["cuda"], raw["cpu"]):
+                emit(phase="yolo_neck", what=name, shape=list(g.shape),
+                     max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+                torch.testing.assert_close(g, c, rtol=RAW_RTOL, atol=RAW_ATOL)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -971,7 +1213,9 @@ def main() -> int:
     emit(phase="device", card=card, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
+    from object_detectors_tpu_torch import bench as B
     from object_detectors_tpu_torch import pipeline as PL
+    from object_detectors_tpu_torch import serve as S
     from object_detectors_tpu_torch.kernels import _build
     from object_detectors_tpu_torch.kernels import fused_block as KF
     from object_detectors_tpu_torch.kernels import nms as KN
@@ -992,9 +1236,21 @@ def main() -> int:
     emit(phase="build", all_seconds=time.perf_counter() - t0)
 
     max_err = phase_kernel(P)
-    batches, timing = phase_e2e(P, PL)
+    batches, yolo_candidates, yolo_nms, timing = phase_e2e(P, KN, PL)
     phase_consistency(PL, N, batches[0][:2])
     del batches
+    _, serving_launches, serving_candidates = phase_serving(B, S, P, KN)
+    lvis_launches, lvis_candidates = phase_yolo_lvis(B, PL, N, P, KN)
+    cases = {"yolo640 candidates": (*yolo_candidates, NUM_CLASSES, 100),
+             "serving YOLO candidates": (*serving_candidates, NUM_CLASSES, 100),
+             "yolo_lvis416 candidates": (*lvis_candidates, LVIS_CLASSES, 300)}
+    for name in B.NMS_DISTRIBUTIONS:
+        boxes, scores, labels = (torch.from_numpy(a).cuda() for a in B.nms_inputs(name))
+        cases[f"bench {name}"] = (boxes, scores, labels, None, NUM_CLASSES, 100)
+    majority = phase_nms_majority(N, KN, cases)
+    latency_nms = phase_nms_latency(B, KN)
+    phase_yolo_neck(PL, torch.from_numpy(np.random.RandomState(6).randint(
+        0, 255, (2, 320, 320, 3), dtype=np.uint8)).cuda())
 
     roi_err = phase_roi_align_kernel(KR)
     phase_nms_kernel(KN)
@@ -1013,16 +1269,23 @@ def main() -> int:
     roi["max_abs_err"] = max(roi["max_abs_err"], roi_err)
     retina_pre = sum(retina_launches[mode]["preprocess"] for mode in retina_launches)
     retina_nms_launches = sum(retina_launches[mode]["nms"] for mode in retina_launches)
-    nms["launches"] += retina_nms_launches
-    nms["launches_by_path"] = {"frcnn640": frcnn_launches["nms"],
+    nms["launches_by_path"] = {"yolo640": yolo_nms, "serving": serving_launches["nms"],
+                               "yolo_lvis416": lvis_launches["nms"],
+                               "nms_p50_latency": latency_nms,
+                               "frcnn640": frcnn_launches["nms"],
                                "retinanet640": retina_nms_launches}
+    nms["launches"] = sum(nms["launches_by_path"].values())
     nms["retinanet_postprocess_shape"] = retina_nms
+    nms["nms_majority_calls"] = majority
     kernels = [{
         "name": "preprocess_u8_bf16", "route": "cuda",
         "source": "object_detectors_tpu_torch/csrc/preprocess.cu",
         "replaces": "object_detectors_tpu/kernels/preprocess.py:33",
-        "launches": timing["launches"] + frcnn_launches["preprocess"] + retina_pre,
+        "launches": (timing["launches"] + serving_launches["preprocess"]
+                     + lvis_launches["preprocess"] + frcnn_launches["preprocess"] + retina_pre),
         "launches_by_path": {"yolo640": timing["launches"],
+                             "serving": serving_launches["preprocess"],
+                             "yolo_lvis416": lvis_launches["preprocess"],
                              "frcnn640": frcnn_launches["preprocess"],
                              "retinanet640": retina_pre},
         "max_abs_err": max_err,
@@ -1053,7 +1316,8 @@ def main() -> int:
                              frcnn_fused["fused_launches_per_forward"]},
         "max_abs_err": fused_err,
         **fused_per_forward,
-        "per_shape": fused_times,
+        "per_shape": [{key: t[key] for key in ("shape", "count", "ms", "plain_ms", "library_ms",
+                                               "bound_ms", "bound_by")} for t in fused_times],
         "frcnn640_backbone": frcnn_fused,
         # library_ms: the unfused cuDNN Bottleneck at the same shapes (no
         # single PyTorch call computes a whole block)

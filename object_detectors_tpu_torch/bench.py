@@ -1,0 +1,323 @@
+"""Bench of the port on one NVIDIA GPU (port of the root ``bench.py``).
+
+    python -m object_detectors_tpu_torch.bench [--quick] [--configs ...]
+
+Rows, each on seeded random weights and its own seeded uint8 batches:
+
+1. yolo640: YOLOv3 640² end to end (uint8 in, normalize kernel, Darknet-53,
+   top-256, decode, majority-vote NMS), batch 128 (``--quick``: 4;
+   ``--full``: 2 to 128; ``--batch-sizes``);
+2. retinanet640: RetinaNet R50-FPN, batch 16, backbone unfused;
+3. frcnn640: Faster R-CNN R50-FPN, batch 16;
+4. yolo_lvis416: YOLOv3 with 1203 LVIS classes at 416², batch 16, top-300,
+   300 detections, IoU 0.6, conf 0.1;
+5. serving: 256 requests of YOLO and RetinaNet at 4:1 through
+   ``serve.BatchedDetectionServer``, flushes of 64 and 16, a pool of 32
+   images on the card;
+6. nms_p50_latency: ``nms_majority`` alone at batch 512, 256 candidates, 80
+   classes, 100 detections, on uniform, clustered and adversarial boxes.
+
+Timing as the reference: distinct uint8 batches staged on the card before
+the timed window, back-to-back calls, one host read of the last output at
+the end; host-to-device copies are outside it, the cast and normalize
+inside. Prints one JSON line: ``metric``, ``value``, ``unit``, ``configs``,
+``e2e``, ``device``, and ``card`` (nvidia-smi's name and power limit, also
+in every row). Left out: ``vs_baseline`` (it divides by a TPU target),
+``--protocol`` (waits for the data and eval port) and ``yolo_train416``
+(waits for training).
+
+``mfu`` of a row is the floating-point operations that
+``torch.utils.flop_counter.FlopCounterMode`` counts over one call, divided
+by the time of a call and the H100 SXM's dense bf16 tensor-core peak. The
+count sees the matrix products and convolutions PyTorch runs; it misses the
+kernels launched through ctypes (normalize, NMS, RoIAlign and, off in every
+row, the fused bottleneck) and all elementwise work.
+
+A row that fails raises; the run then prints no line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from object_detectors_tpu_torch import serve as S
+from object_detectors_tpu_torch.ops.nms import nms_majority
+from object_detectors_tpu_torch.pipeline import (
+    build_frcnn_pipeline_uint8, build_pipeline, build_pipeline_uint8,
+)
+
+BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 tensor cores, published
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _graph_flops(infer, *example) -> float | None:
+    """The operations FlopCounterMode counts over one call (module docstring)."""
+    with FlopCounterMode(display=False) as counter:
+        infer(*example)
+    flops = float(counter.get_total_flops())
+    return flops if flops > 0 else None
+
+
+def _mfu(flops, dt):
+    if flops is None or not dt:
+        return None
+    return flops / dt / BF16_PEAK_FLOPS
+
+
+def _timed_stream(infer, host_batches, warmup=2, iters=10, device="cuda"):
+    """Seconds a call: the batches go to the device outside the timed
+    window; ``warmup`` calls and a host read, then ``iters`` back-to-back
+    calls cycling through the batches and one host read of the last
+    output."""
+    dev_batches = [torch.as_tensor(b).to(device) for b in host_batches]
+    for i in range(warmup):
+        out = infer(dev_batches[i % len(dev_batches)])
+    float(out[1].sum())  # host read
+    t0 = time.perf_counter()
+    outs = []
+    for i in range(iters):
+        outs.append(infer(dev_batches[i % len(dev_batches)]))
+    float(outs[-1][1].sum())  # one final host read
+    return (time.perf_counter() - t0) / iters
+
+
+def _uint8_batches(seed: int, bs: int, img_size: int):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 255, (bs, img_size, img_size, 3), dtype=np.uint8)
+            for _ in range(3)]
+
+
+def run(batch_sizes=(64,), img_size=640, warmup=2, iters=10, uint8=True, device="cuda"):
+    """yolo640: (best images/s, {batch: images/s}, mfu at the best batch)."""
+    build = build_pipeline_uint8 if uint8 else build_pipeline
+    infer = build(img_size=img_size, device=device)
+    best, best_mfu, results = 0.0, None, {}
+    rng = np.random.RandomState(0)
+    for bs in batch_sizes:
+        if uint8:
+            batches = [rng.randint(0, 255, (bs, img_size, img_size, 3), dtype=np.uint8)
+                       for _ in range(3)]
+        else:
+            batches = [torch.from_numpy(rng.rand(bs, img_size, img_size, 3).astype(np.float32))
+                       .to(torch.bfloat16) for _ in range(3)]
+        dt = _timed_stream(infer, batches, warmup, iters, device)
+        ips = bs / dt
+        results[bs] = ips
+        if ips >= best:
+            best_mfu = _mfu(_graph_flops(infer, torch.as_tensor(batches[0]).to(device)), dt)
+        best = max(best, ips)
+    return best, results, best_mfu
+
+
+def _run_row(infer, seed, bs, img_size, warmup, iters, device):
+    """(images/s, mfu) of one pipeline on its seeded uint8 batches."""
+    batches = _uint8_batches(seed, bs, img_size)
+    dt = _timed_stream(infer, batches, warmup, iters, device)
+    return bs / dt, _mfu(_graph_flops(infer, torch.from_numpy(batches[0]).to(device)), dt)
+
+
+def run_retinanet(bs=16, img_size=640, warmup=2, iters=8, device="cuda"):
+    """retinanet640: RetinaNet R50-FPN, uint8 end to end, backbone unfused."""
+    infer = S.build_retinanet_pipeline(img_size=img_size, uint8_input=True, device=device)
+    return _run_row(infer, 1, bs, img_size, warmup, iters, device)
+
+
+def run_frcnn(bs=16, img_size=640, warmup=2, iters=8, device="cuda"):
+    """frcnn640: Faster R-CNN R50-FPN, uint8 end to end."""
+    infer = build_frcnn_pipeline_uint8(img_size=img_size, device=device)
+    return _run_row(infer, 2, bs, img_size, warmup, iters, device)
+
+
+def run_yolo_lvis(bs=16, img_size=416, warmup=2, iters=8, num_classes=1203, topk=300,
+                  device="cuda"):
+    """yolo_lvis416: YOLOv3 with the 1203 LVIS classes, majority-vote NMS
+    over 300 candidates to 300 detections (IoU 0.6, conf 0.1)."""
+    infer = build_pipeline_uint8(num_classes, img_size, topk=topk, max_det=300, device=device)
+    return _run_row(infer, 3, bs, img_size, warmup, iters, device)
+
+
+def run_serving(n_requests=256, img_size=640, yolo_bs=64, retina_bs=16, device="cuda",
+                pipelines=None):
+    """serving: the mixed YOLO + RetinaNet stream through the batched
+    server (uint8 requests as slots of a 32-image pool on the device, up to
+    four flushes in flight). ``pipelines``: {"yolo", "retinanet"} to serve;
+    None builds the full-width ones. A warm-up stream of the first
+    ``yolo_bs + retina_bs`` requests runs first. Returns (images/s, the
+    timed stream's responses, the server, whose ``flushes`` count the timed
+    stream's)."""
+    if pipelines is None:
+        pipelines = {
+            "yolo": S.build_yolo_pipeline(img_size=img_size, batch_size=yolo_bs,
+                                          uint8_input=True, device=device),
+            "retinanet": S.build_retinanet_pipeline(img_size=img_size, uint8_input=True,
+                                                    device=device),
+        }
+    server = S.BatchedDetectionServer(pipelines, {"yolo": yolo_bs, "retinanet": retina_bs},
+                                      input_dtype=torch.uint8, device=device)
+    rng = np.random.RandomState(4)
+    server.stage_pool(rng.randint(0, 255, (32, img_size, img_size, 3), dtype=np.uint8))
+    reqs = [S.Request(i, "yolo" if i % 5 else "retinanet", i % 32) for i in range(n_requests)]
+    server.run_stream(reqs[: yolo_bs + retina_bs])  # warm-up
+    server.flushes = dict.fromkeys(server.flushes, 0)
+    t0 = time.perf_counter()
+    out = server.run_stream(reqs)
+    dt = time.perf_counter() - t0
+    if len(out) != n_requests:
+        raise RuntimeError(f"the serving stream answered {len(out)} of {n_requests} requests")
+    return n_requests / dt, out, server
+
+
+def nms_uniform(rng, bs, n_cand):
+    xy = rng.rand(bs, n_cand, 2) * 600
+    wh = rng.rand(bs, n_cand, 2) * 120 + 1
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def nms_clustered(rng, bs, n_cand):
+    """Crowded-scene candidates: about 12 dense clusters an image, so deep
+    suppression chains."""
+    centers = rng.rand(bs, 12, 2) * 560 + 40
+    assign = rng.randint(0, 12, (bs, n_cand))
+    cxy = np.take_along_axis(centers, assign[..., None], axis=1)
+    jitter = rng.randn(bs, n_cand, 2) * 10
+    wh = rng.rand(bs, n_cand, 2) * 40 + 40
+    xy = cxy + jitter - wh / 2
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def nms_adversarial(rng, bs, n_cand):
+    """Worst-case suppression chain: box i overlaps box i+1 at IoU 8/12 =
+    0.67 > 0.6 but box i+2 at 6/14 = 0.43 < 0.6, and the scores descend
+    along the chain, so greedy keeps 0, 2, 4, ... (chain depth n_cand / 2).
+    Returns (boxes, scores)."""
+    x = np.arange(n_cand, dtype=np.float32) * 2.0
+    one = np.stack([x, np.zeros_like(x), x + 10, np.full_like(x, 10.0)], -1)
+    boxes = np.tile(one[None], (bs, 1, 1))
+    scores = np.tile(np.linspace(1.0, 0.5, n_cand, dtype=np.float32)[None], (bs, 1))
+    return boxes, scores
+
+
+NMS_DISTRIBUTIONS = {"uniform": nms_uniform, "clustered": nms_clustered,
+                     "adversarial": nms_adversarial}
+
+
+def nms_inputs(name, bs=512, n_cand=256, num_classes=80):
+    """The reference's candidates of one distribution, from its seed 5:
+    numpy (boxes [bs, n, 4] f32, scores [bs, n] f32, labels [bs, n])."""
+    rng = np.random.RandomState(5)
+    out = NMS_DISTRIBUTIONS[name](rng, bs, n_cand)
+    if isinstance(out, tuple):
+        boxes, scores = out
+    else:
+        boxes, scores = out, rng.rand(bs, n_cand).astype(np.float32)
+    return boxes, scores, rng.randint(0, num_classes, (bs, n_cand))
+
+
+def run_nms_latency(bs=512, n_cand=256, max_det=100, num_classes=80, iters=20, device="cuda"):
+    """nms_p50_latency: batched majority-vote NMS alone on candidates on the
+    device: per distribution, 3 warm-up calls, then 7 samples of ``iters``
+    back-to-back calls ending in a host read; the median and the largest
+    sample's mean call time over the batch, in microseconds an image (a
+    sample is a mean over ``iters`` calls, so its largest is a max of
+    means, not a p99)."""
+    results = {}
+    for name in NMS_DISTRIBUTIONS:
+        boxes, scores, labels = (torch.from_numpy(a).to(device)
+                                 for a in nms_inputs(name, bs, n_cand, num_classes))
+
+        def f():
+            return nms_majority(boxes, scores, labels, num_classes, 0.6, max_det)
+
+        for _ in range(3):
+            out = f()
+        float(out[1].sum())
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            outs = [f() for _ in range(iters)]
+            float(outs[-1][1].sum())
+            times.append((time.perf_counter() - t0) / iters)
+        times = np.sort(times)
+        results[name] = {"p50_us": float(np.median(times)) / bs * 1e6,
+                         "max_mean_us": float(times[-1]) / bs * 1e6}
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--quick", action="store_true",
+                    help="single small batch size for smoke runs")
+    ap.add_argument("--full", action="store_true", help="batch sweep 2 to 128")
+    ap.add_argument("--configs", nargs="*", default=None,
+                    help="subset of {yolo640,retinanet640,frcnn640,yolo_lvis416,serving}; "
+                         "default: all five")
+    ap.add_argument("--img-size", type=int, default=640)
+    ap.add_argument("--batch-sizes", type=int, nargs="*", default=None)
+    ap.add_argument("--device-resident", action="store_true",
+                    help="normalized bf16 batches on the card instead of uint8")
+    args = ap.parse_args(argv)
+
+    if args.batch_sizes:
+        sizes = tuple(args.batch_sizes)
+    elif args.quick:
+        sizes = (4,)
+    elif args.full:
+        sizes = (2, 4, 8, 16, 32, 64, 128)
+    else:
+        sizes = (128,)
+    wanted = args.configs or ["yolo640", "retinanet640", "frcnn640", "yolo_lvis416", "serving"]
+    if args.quick:
+        wanted = args.configs or ["yolo640"]
+
+    card = card_line()
+    configs = {}
+    best, results, ymfu = run(sizes, args.img_size, uint8=not args.device_resident)
+    configs["yolo640"] = {"value": best, "mfu": ymfu,
+                          "per_batch": {str(k): v for k, v in results.items()}}
+    if "retinanet640" in wanted:
+        v, m = run_retinanet()
+        configs["retinanet640"] = {"value": v, "mfu": m}
+    if "frcnn640" in wanted:
+        v, m = run_frcnn()
+        configs["frcnn640"] = {"value": v, "mfu": m}
+    if "yolo_lvis416" in wanted:
+        v, m = run_yolo_lvis()
+        configs["yolo_lvis416"] = {"value": v, "mfu": m}
+    if not args.quick:
+        nms_res = run_nms_latency()
+        configs["nms_p50_latency"] = {"value": nms_res["uniform"]["p50_us"],
+                                      "unit": "us/image", "distributions": nms_res}
+    if "serving" in wanted:
+        configs["serving"] = {"value": run_serving()[0]}
+    for row in configs.values():
+        row["card"] = card
+
+    print(json.dumps({
+        "metric": f"yolov3_{args.img_size}sq_e2e_uint8_throughput",
+        "value": configs["yolo640"]["value"],
+        "unit": "images/sec/chip",
+        "configs": configs,
+        "e2e": ("uint8 batches staged on the card before the timed window; the "
+                "normalize kernel and the whole graph inside it; host-to-device "
+                "copies excluded" if not args.device_resident else "device-resident"),
+        "device": "cuda",
+        "card": card,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -66,6 +66,30 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
+def max_pool_same(x: torch.Tensor, window: int, stride: int = 1) -> torch.Tensor:
+    """MaxPool2d(window, stride, padding=(window-1)//2) on NCHW: the padding
+    takes no part in the max, as the Flax version's -inf padding."""
+    return F.max_pool2d(x, window, stride, (window - 1) // 2)
+
+
+class ClassAttention(nn.Module):
+    """SE-style class-logit attention (the JAX ``ClassAttention``, unused on
+    the main path): the class logits [B, ..., C] averaged over everything
+    but the batch, softmax, ``fc1`` to ``reduction_ratio`` + ReLU, ``fc2``
+    back to C, sigmoid -> per-class gates [B, C] in the input's dtype."""
+
+    def __init__(self, num_classes: int, reduction_ratio: int = 16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.fc1 = nn.Linear(num_classes, reduction_ratio)
+        self.fc2 = nn.Linear(reduction_ratio, num_classes)
+
+    def forward(self, class_logits: torch.Tensor) -> torch.Tensor:
+        pooled = class_logits.reshape(class_logits.shape[0], -1, self.num_classes).mean(1)
+        x = F.relu(linear(torch.softmax(pooled, -1), self.fc1))
+        return torch.sigmoid(linear(x, self.fc2))
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """nn.Upsample(scale_factor=2, mode='nearest') on NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")

@@ -29,7 +29,7 @@ class ResidualBlock(nn.Module):
 
 
 class DarkNet(nn.Module):
-    """Stage layout (1, 2, 8, 8, 4) = Darknet-53."""
+    """Stage layout (1, 2, 8, 8, 4) = Darknet-53; (1, 1, 2, 2, 1) = Darknet-21."""
 
     # channel plan per stage: (bottleneck, out)
     STAGE_PLANES = ((32, 64), (64, 128), (128, 256), (256, 512), (512, 1024))
@@ -60,3 +60,7 @@ class DarkNet(nn.Module):
 
 def darknet53() -> DarkNet:
     return DarkNet(layers=(1, 2, 8, 8, 4))
+
+
+def darknet21() -> DarkNet:
+    return DarkNet(layers=(1, 1, 2, 2, 1))

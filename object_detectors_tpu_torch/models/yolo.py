@@ -1,5 +1,5 @@
 """YOLOv3 detector graph (port of the JAX package's ``models/yolo.py``):
-Darknet backbone -> neck -> three detection branches.
+Darknet backbone -> optional SPP/FPN neck -> three detection branches.
 
 The public boundary keeps the JAX layout: images in as NHWC
 ``[B, H, W, 3]``, raw maps out as NHWC ``[B, H_s, W_s, A*(5+C)]`` for
@@ -17,16 +17,60 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from object_detectors_tpu_torch.models.common import ConvBN, upsample_nearest_2x
+from object_detectors_tpu_torch.models.common import (
+    ConvBN, conv2d, max_pool_same, upsample_nearest_2x,
+)
 from object_detectors_tpu_torch.models.darknet import DarkNet
+from object_detectors_tpu_torch.models.fpn import FeaturePyramidNetwork
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling on each scale: the concat of the map and its
+    max pools (``pyramids[k]`` windows, stride 1, same padding), then a 1x1
+    conv with bias (``bottleneck{k}``) back to the map's width. The Flax
+    module's ``bottleneck=False`` path (the concat passed on, a width the
+    head does not take) is not ported."""
+
+    def __init__(self, channels: Sequence[int], pyramids: Sequence[Sequence[int]]):
+        super().__init__()
+        self.pyramids = tuple(tuple(p) for p in pyramids)
+        for k, (c, windows) in enumerate(zip(channels, self.pyramids)):
+            self.add_module(f"bottleneck{k}", nn.Conv2d(c * (1 + len(windows)), c, 1))
+
+    def forward(self, feats):
+        # feats coarse -> fine: (x0 1024 ch, x1 512, x2 256)
+        return tuple(conv2d(torch.cat([x] + [max_pool_same(x, w) for w in windows], 1),
+                            getattr(self, f"bottleneck{k}"))
+                     for k, (x, windows) in enumerate(zip(feats, self.pyramids)))
 
 
 class YoloNeck(nn.Module):
-    """The neck on its default path (no SPP, no FPN): features pass through
-    unchanged. The SPP and FPN options are not ported yet."""
+    """Optional SPP and/or FPN fusion of (C5, C4, C3). The FPN path is the
+    JAX package's single pass: one ``FeaturePyramidNetwork`` (256 wide, no
+    extra block) over (C3, C4, C5); its finest output replaces C3, and its
+    second is concatenated to C4 and projected back to 512 by ``fpn_proj1``
+    (1x1 conv with bias). C5 passes unchanged."""
+
+    def __init__(self, use_spp: bool = False, use_fpn: bool = False,
+                 pyramids: Sequence[Sequence[int]] = ((5, 9, 13),) * 3):
+        super().__init__()
+        self.use_spp, self.use_fpn = use_spp, use_fpn
+        c3, c4, c5 = DarkNet.out_channels
+        if use_spp:
+            self.spp = SPP((c5, c4, c3), pyramids)
+        if use_fpn:
+            self.fpn = FeaturePyramidNetwork((c3, c4, c5), 256, extra_blocks=None)
+            self.fpn_proj1 = nn.Conv2d(c4 + 256, c4, 1)
 
     def forward(self, feats):
-        return feats
+        x0, x1, x2 = feats  # coarse (1024) -> fine (256)
+        if self.use_spp:
+            x0, x1, x2 = self.spp((x0, x1, x2))
+        if self.use_fpn:
+            fine_outs = self.fpn([x2, x1, x0])
+            x2 = fine_outs[0]
+            x1 = conv2d(torch.cat([x1, fine_outs[1]], 1), self.fpn_proj1)
+        return x0, x1, x2
 
 
 class DetectionBranch(nn.Module):
@@ -59,14 +103,16 @@ class YoloHead(nn.Module):
 
     def __init__(self, num_classes: int = 80, anchors_per_scale: int = 3,
                  backbone_layers: Sequence[int] = (1, 2, 8, 8, 4),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_spp: bool = False,
+                 use_fpn: bool = False,
+                 pyramids: Sequence[Sequence[int]] = ((5, 9, 13),) * 3):
         super().__init__()
         self.num_classes = num_classes
         self.anchors_per_scale = anchors_per_scale
         self.dtype = dtype
         out_f = anchors_per_scale * (5 + num_classes)
         self.backbone = DarkNet(backbone_layers)
-        self.neck = YoloNeck()
+        self.neck = YoloNeck(use_spp, use_fpn, pyramids)
         self.embedding0 = DetectionBranch(1024, 512, 1024, out_f)
         self.lateral1 = ConvBN(512, 256, 1)
         self.embedding1 = DetectionBranch(256 + 512, 256, 512, out_f)

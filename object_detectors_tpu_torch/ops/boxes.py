@@ -58,8 +58,10 @@ def decode_boxes(rel_codes: torch.Tensor, boxes: torch.Tensor,
     ctr_x = boxes[..., 0] + 0.5 * widths
     ctr_y = boxes[..., 1] + 0.5 * heights
 
-    # a tensor divisor: the GPU would multiply by the reciprocal of a number
-    codes = rel_codes / torch.tensor(weights, dtype=rel_codes.dtype, device=rel_codes.device)
+    # a tensor divisor: the GPU would multiply by the reciprocal of a number;
+    # filled on the device, as a copy from a host list waits for the device
+    codes = rel_codes / torch.stack([torch.full((), w, dtype=rel_codes.dtype,
+                                                device=rel_codes.device) for w in weights])
     dx = codes[..., 0]
     dy = codes[..., 1]
     dw = codes[..., 2].clamp(max=bbox_xform_clip)

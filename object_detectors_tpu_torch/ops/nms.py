@@ -2,7 +2,7 @@
 
 Port of the JAX package's ``ops/nms.py`` (``exact_blocked_topk``, ``nms``,
 ``batched_nms``, the fixed-point kept set, ``nms_majority`` with its
-fixed-point and scan methods), written over a leading batch dimension where
+fixed-point and scan methods, ``topk_by_score``), written over a leading batch dimension where
 the JAX code ``vmap``s per image. The greedy kept sets come from
 ``greedy_nms``: the hand-written kernel of ``kernels/nms.py`` for a CUDA
 tensor, its plain version for a CPU tensor. Greedy NMS has one kept set,
@@ -19,12 +19,25 @@ import torch
 
 from object_detectors_tpu_torch.kernels import nms as nms_kernel
 from object_detectors_tpu_torch.ops.boxes import pairwise_iou
+from object_detectors_tpu_torch.ops.selection import _total_order_code
 
 
 def topk_lowest_index(x: torch.Tensor, k: int):
     """Top-k over the last dim, descending, equal values in index order."""
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+
+
+def topk_by_score(scores: torch.Tensor, k: int):
+    """``lax.top_k`` over the last dim (the JAX ``topk_by_score``): the k
+    largest values, descending in IEEE total order (NaN above +inf, +0.0
+    above -0.0), equal values lowest index first; k > n raises, as there."""
+    if k > scores.shape[-1]:
+        raise ValueError(f"k must be no larger than the last dim, got k={k} for "
+                         f"{tuple(scores.shape)}")
+    idx = torch.sort(_total_order_code(scores.float()), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return torch.gather(scores, -1, idx), idx
 
 
 def exact_blocked_topk(scores: torch.Tensor, k: int, block: int = 64):
@@ -79,7 +92,12 @@ def _majority_nms_fixedpoint(boxes, scores, labels, num_classes, iou_threshold,
     """Kept set as the fixed point of "alive and not overlapped by an earlier
     kept box", then each suppressed box joins the cluster of the first kept
     box (score order) that overlaps it: the step where the sequential scan
-    removed it. Scores of -inf mark invalid boxes."""
+    removed it. Scores of -inf mark invalid boxes; as in JAX, a box is alive
+    when its score is finite (+inf and NaN are dead too).
+
+    That fixed point is the greedy kept set in stable score order, so it
+    comes from one ``fixedpoint_keep`` call on the sorted boxes (one launch
+    of the NMS kernel on a CUDA tensor): no loop and no sync on the host."""
     bsz, n = scores.shape
     order = torch.sort(-scores, dim=1, stable=True).indices
     b = gather_rows(boxes, order)
@@ -90,15 +108,9 @@ def _majority_nms_fixedpoint(boxes, scores, labels, num_classes, iou_threshold,
     earlier = idx[None, :] < idx[:, None]                   # [j, i]: i before j
     over = ((pairwise_iou(b, b) > iou_threshold) & earlier
             & alive[:, :, None] & alive[:, None, :])        # [B, j, i]
-
-    # Position j settles one step after every earlier position has, so the
-    # iteration reaches its fixed point within n steps.
-    kept = alive
-    for _ in range(n):
-        new_kept = alive & ~(over & kept[:, None, :]).any(-1)
-        if torch.equal(new_kept, kept):
-            break
-        kept = new_kept
+    # the kernel keeps equal scores in index order: on the stably sorted
+    # input, JAX's argsort order
+    kept = fixedpoint_keep(b, s, iou_threshold, valid=alive)
 
     cand = over & kept[:, None, :]
     first_i = torch.argmax(cand.to(torch.int32) * (n - idx), dim=-1)  # [B, j]
@@ -190,11 +202,12 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
 
 
 def fixedpoint_keep(boxes: torch.Tensor, scores: torch.Tensor,
-                    iou_threshold: float) -> torch.Tensor:
+                    iou_threshold: float, valid: torch.Tensor | None = None) -> torch.Tensor:
     """The greedy kept set as a mask [G, N] in input order (the JAX
-    ``_fixedpoint_keep``, whose fixed point is this set)."""
+    ``_fixedpoint_keep``, whose fixed point is this set); ``valid`` False
+    marks a dead box, as a score of -inf or NaN does."""
     g, n = scores.shape
-    keep, ok = greedy_nms(boxes, scores, iou_threshold, n)
+    keep, ok = greedy_nms(boxes, scores, iou_threshold, n, valid)
     slots = torch.where(ok, keep, n).long()  # padding goes to a spare column
     kept = torch.zeros((g, n + 1), dtype=torch.bool, device=scores.device)
     return kept.scatter_(1, slots, True)[:, :n]

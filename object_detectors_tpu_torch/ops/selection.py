@@ -72,3 +72,10 @@ def radix_topk_multi(scores_list: Sequence[torch.Tensor], ks: Sequence[int]):
     if len(scores_list) != len(ks):
         raise ValueError("radix_topk_multi needs one k per score tensor")
     return [radix_topk(s, k) for s, k in zip(scores_list, ks)]
+
+
+def radix_topk_masked(scores: torch.Tensor, valid: torch.Tensor, k: int):
+    """``radix_topk`` of the scores where ``valid``, -inf elsewhere (the
+    pre-NMS pattern): an invalid entry is selected only when fewer than k
+    are valid, and carries -inf."""
+    return radix_topk(torch.where(valid, scores, float("-inf")), k)

@@ -1,9 +1,9 @@
 """Serving pipelines: uint8 or normalized images -> boxes, scores, labels,
 valid.
 
-YOLOv3: port of ``bench.py:build_pipeline`` / ``build_pipeline_uint8`` and
-``serve.py:build_yolo_pipeline`` of the JAX repository, with the same
-defaults (80 classes, 640², top-256, 100 detections, conf 0.1, IoU 0.6,
+YOLOv3: port of ``bench.py:build_pipeline`` / ``build_pipeline_uint8`` of
+the JAX repository (``serve.build_yolo_pipeline`` runs it at top-512), with
+the same defaults (80 classes, 640², top-256, 100 detections, conf 0.1, IoU 0.6,
 bf16). The steps: YOLOv3 raw maps -> score = sigmoid(obj) * softmax-max ->
 exact blocked top-k -> decode of the selected rows only -> class-agnostic
 majority-vote NMS. The uint8 variant puts the normalize kernel in front.
@@ -11,8 +11,9 @@ majority-vote NMS. The uint8 variant puts the normalize kernel in front.
 Faster R-CNN: port of the ``frcnn640`` graph of ``bench.py:run_frcnn``
 (91 classes, 640², bf16): the normalize kernel, then ``FasterRCNN``.
 
-RetinaNet: port of ``serve.py:build_retinanet_pipeline(uint8_input=True)``,
-the ``retinanet640`` graph of ``bench.py:run_retinanet`` (91 classes, 640²,
+RetinaNet: port of ``serve.py:build_retinanet_pipeline(uint8_input=True)``
+(``serve.build_retinanet_pipeline`` also takes normalized floats), the
+``retinanet640`` graph of ``bench.py:run_retinanet`` (91 classes, 640²,
 bf16): the normalize kernel, ``RetinaNet``, then ``retinanet_postprocess``
 with the default tfidf of 1.0 against anchors made once for the image size.
 """
@@ -106,6 +107,15 @@ class YoloPipeline:
         return self.nms(*self.candidates(images))
 
 
+def place_model(model, make, dtype: torch.dtype, device: torch.device):
+    """The model a pipeline runs: ``make()`` when ``model`` is None, else a
+    copy of ``model`` (the caller's stays on its device and dtype), with
+    activations in ``dtype``, in eval mode on ``device``."""
+    model = make() if model is None else copy.deepcopy(model)
+    model.dtype = dtype
+    return model.to(device).eval()
+
+
 def build_pipeline(num_classes: int = 80, img_size: int = 640, topk: int = 256,
                    max_det: int = 100, dtype: torch.dtype = torch.bfloat16,
                    conf: float = 0.1, iou_thr: float = 0.6,
@@ -117,13 +127,8 @@ def build_pipeline(num_classes: int = 80, img_size: int = 640, topk: int = 256,
     copied, so the caller's stays on its device and dtype, and the copy runs
     its parameters as they are with activations in ``dtype``."""
     dev = resolve_device(device)
-    if model is None:
-        model = init_yolo_(YoloHead(num_classes, ANCHORS_PER_SCALE,
-                                    tuple(backbone_layers)))
-    else:
-        model = copy.deepcopy(model)
-    model.dtype = dtype
-    model = model.to(dev).eval()
+    model = place_model(model, lambda: init_yolo_(YoloHead(
+        num_classes, ANCHORS_PER_SCALE, tuple(backbone_layers))), dtype, dev)
     return YoloPipeline(model, dev, num_classes, img_size, topk, max_det, dtype,
                         conf, iou_thr, uint8)
 
@@ -134,15 +139,6 @@ def build_pipeline_uint8(num_classes: int = 80, img_size: int = 640, topk: int =
     """uint8-input variant: the normalize kernel in front of the same graph."""
     return build_pipeline(num_classes, img_size, topk, max_det, dtype, conf, iou_thr,
                           uint8=True, **kwargs)
-
-
-def build_yolo_pipeline(num_classes: int = 80, img_size: int = 640,
-                        dtype: torch.dtype = torch.bfloat16, topk: int = 512,
-                        max_det: int = 100, uint8_input: bool = False,
-                        **kwargs) -> YoloPipeline:
-    """The serving pipeline: the bench graph at top-512."""
-    return build_pipeline(num_classes, img_size, topk, max_det, dtype,
-                          uint8=uint8_input, **kwargs)
 
 
 class FrcnnPipeline:
@@ -177,23 +173,22 @@ def build_frcnn_pipeline_uint8(num_classes: int = 91, img_size: int = 640,
     given model is copied, so the caller's stays on its device and dtype,
     and the copy runs its parameters as they are with activations in
     ``dtype``."""
-    dev = resolve_device(device)
-    if model is None:
-        model = init_frcnn_(FasterRCNN(FasterRCNNConfig(num_classes=num_classes)))
-    else:
-        model = copy.deepcopy(model)
-    model.dtype = dtype
-    return FrcnnPipeline(model.to(dev).eval(), dtype, img_size)
+    model = place_model(model, lambda: init_frcnn_(FasterRCNN(FasterRCNNConfig(
+        num_classes=num_classes))), dtype, resolve_device(device))
+    return FrcnnPipeline(model, dtype, img_size)
 
 
 class RetinanetPipeline:
-    """Callable uint8 RetinaNet graph around one ``RetinaNet`` on one device:
-    ``preprocess_images``, the model, ``retinanet_postprocess``."""
+    """Callable RetinaNet graph around one ``RetinaNet`` on one device:
+    ``preprocess_images`` (with ``uint8=True``; otherwise the input is an
+    already normalized float batch), the model, ``retinanet_postprocess``."""
 
-    def __init__(self, model: RetinaNet, dtype: torch.dtype, img_size: int, device):
+    def __init__(self, model: RetinaNet, dtype: torch.dtype, img_size: int, device,
+                 uint8: bool = True):
         self.model = model
         self.dtype = dtype
         self.img_size = img_size
+        self.uint8 = uint8
         self.cfg = RetinaNetConfig(num_classes=model.head.num_classes)
         s = (img_size, img_size)
         sizes, ratios = anchor_lib.retinanet_anchor_config()
@@ -202,17 +197,18 @@ class RetinanetPipeline:
 
     @torch.inference_mode()
     def __call__(self, images: torch.Tensor, on_stage=None):
-        """uint8 [B, img_size, img_size, 3] -> (boxes [B, 300, 4], scores,
-        labels 0-based (-1 where not valid), valid). ``on_stage(name)``, when
-        given, is called after each stage: normalize, backbone+FPN, head,
-        select, cap+decode, NMS."""
+        """[B, img_size, img_size, 3] -> (boxes [B, 300, 4], scores, labels
+        0-based (-1 where not valid), valid). ``on_stage(name)``, when given,
+        is called after each stage: normalize (uint8 input only),
+        backbone+FPN, head, select, cap+decode, NMS."""
         if tuple(images.shape[1:]) != (self.img_size, self.img_size, 3):
             raise ValueError(f"expected [B, {self.img_size}, {self.img_size}, 3] images, "
                              f"got {tuple(images.shape)}")
-        x = preprocess_images(images, self.dtype)
-        if on_stage is not None:
-            on_stage("normalize")
-        cls, reg, level_sizes = self.model(x, on_stage=on_stage)
+        if self.uint8:
+            images = preprocess_images(images, self.dtype)
+            if on_stage is not None:
+                on_stage("normalize")
+        cls, reg, level_sizes = self.model(images, on_stage=on_stage)
         if sum(level_sizes) != self.anchors.shape[0]:
             raise ValueError(f"the head gave {sum(level_sizes)} anchors, the grid "
                              f"{self.anchors.shape[0]}")
@@ -231,9 +227,5 @@ def build_retinanet_pipeline_uint8(num_classes: int = 91, img_size: int = 640,
     device and dtype, and the copy runs its parameters as they are with
     activations in ``dtype``."""
     dev = resolve_device(device)
-    if model is None:
-        model = init_retinanet_(RetinaNet(num_classes))
-    else:
-        model = copy.deepcopy(model)
-    model.dtype = dtype
-    return RetinanetPipeline(model.to(dev).eval(), dtype, img_size, dev)
+    model = place_model(model, lambda: init_retinanet_(RetinaNet(num_classes)), dtype, dev)
+    return RetinanetPipeline(model, dtype, img_size, dev)

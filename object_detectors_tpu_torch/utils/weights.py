@@ -29,6 +29,9 @@ def _leaves(tree, prefix=()):
 
 
 def flax_yolo_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
+    """Flax ``YoloHead`` variables -> a state dict for ``models.yolo.YoloHead``,
+    the neck's SPP bottlenecks, FPN and ``fpn_proj1`` included (convs with
+    bias, mapped by path like every other conv)."""
     state = {}
     for path, value in _leaves(params):
         *mod, leaf = path
@@ -49,6 +52,12 @@ def flax_yolo_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
         if leaf == "mean":
             state[".".join(mod + ["num_batches_tracked"])] = torch.tensor(0)
     return state
+
+
+def flax_class_attention_to_torch(params) -> dict[str, torch.Tensor]:
+    """Flax ``ClassAttention`` parameters (Dense ``fc1``, ``fc2``) -> a state
+    dict for ``models.common.ClassAttention``."""
+    return _flax_frozen_bn_to_torch(params, {})
 
 
 def flax_frcnn_to_torch(params, frozen) -> dict[str, torch.Tensor]:

@@ -105,6 +105,76 @@ def test_fixedpoint_equals_scan(n, max_output, num_classes):
         assert torch.equal(a, b)
 
 
+def _hard_case(case):
+    """(boxes, scores, labels, valid or None, num_classes, max_output) of one
+    of the inputs that stress the fixed point's kept set."""
+    if case in ("adversarial chain", "bench clustered"):
+        from object_detectors_tpu_torch import bench
+
+        name = "adversarial" if case == "adversarial chain" else "clustered"
+        boxes, scores, labels = bench.nms_inputs(name, bs=2, n_cand=64, num_classes=80)
+        return boxes, scores, labels.astype(np.int32), None, 80, 40
+    if case == "1203 classes":
+        boxes, scores, labels, valid = _clustered(11, 2, 300, 1203)
+        return boxes, scores, labels, valid, 1203, 300
+    boxes, scores, labels, valid = _clustered(12, 2, 96, 5)
+    if case == "all scores tied":
+        return boxes, np.full_like(scores, 0.5), labels, valid, 5, 50
+    if case == "NaN, +inf and -inf scores":
+        scores[:, ::7], scores[:, 3::11], scores[:, 5::13] = np.nan, np.inf, -np.inf
+        return boxes, scores, labels, None, 5, 50
+    assert case == "all invalid"
+    return boxes, scores, labels, np.zeros_like(valid), 5, 50
+
+
+@pytest.mark.parametrize("case", ["adversarial chain", "bench clustered", "1203 classes",
+                                  "all scores tied", "NaN, +inf and -inf scores",
+                                  "all invalid"])
+def test_nms_majority_matches_jax_on_hard_inputs(case):
+    """The kept set from the NMS kernel's plain version against JAX's fixed
+    point: a suppression chain of depth n/2, the bench's crowded clusters,
+    the LVIS class count, exact ties, scores that are not finite (JAX keeps
+    only finite scores alive) and no valid box."""
+    boxes, scores, labels, valid, num_classes, max_output = _hard_case(case)
+    out = N.nms_majority(torch.from_numpy(boxes), torch.from_numpy(scores),
+                         torch.from_numpy(labels), num_classes, 0.6, max_output,
+                         valid=None if valid is None else torch.from_numpy(valid))
+    out = [t.numpy() for t in out]
+    for i in range(boxes.shape[0]):
+        ref = [np.asarray(r) for r in jax_nms.nms_majority(
+            jnp.asarray(boxes[i]), jnp.asarray(scores[i]), jnp.asarray(labels[i]),
+            num_classes=num_classes, iou_threshold=0.6, max_output=max_output,
+            valid=None if valid is None else jnp.asarray(valid[i]))]
+        for o, r in zip(out, ref):  # boxes, scores, labels, valid
+            np.testing.assert_array_equal(o[i], r)
+    kept = out[3].sum(1)
+    if case == "adversarial chain":
+        assert (kept == 32).all()  # greedy keeps 0, 2, 4, ...: depth 32 of 64
+    elif case == "all invalid":
+        assert not out[3].any()
+    else:
+        assert (kept > 0).all()
+    if case == "NaN, +inf and -inf scores":
+        kept_scores = out[1][out[3]]
+        assert np.isfinite(kept_scores).all()
+
+
+def test_topk_by_score_matches_lax_top_k():
+    """lax.top_k's order: NaN above +inf, +0.0 above -0.0, ties lowest index
+    first; k below and at n, and above it refused."""
+    x = np.array([[0.5, np.nan, -0.0, 0.0, 0.5, np.inf, -np.inf, 0.25, 0.5, -1.0],
+                  [3.0, 3.0, 2.0, -0.0, 3.0, 1.0, 0.0, np.nan, 3.0, 2.0]], np.float32)
+    for k in (1, 4, 10):
+        values, idx = N.topk_by_score(torch.from_numpy(x), k)
+        for row in range(2):
+            ref_v, ref_i = jax_nms.topk_by_score(jnp.asarray(x[row]), k)
+            np.testing.assert_array_equal(idx[row].numpy(), np.asarray(ref_i))
+            np.testing.assert_array_equal(values[row].numpy().view(np.int32),
+                                          np.asarray(ref_v).view(np.int32))
+    with pytest.raises(ValueError, match="no larger"):  # as lax.top_k
+        N.topk_by_score(torch.from_numpy(x), 11)
+
+
 def test_nms_majority_all_invalid_and_unknown_method():
     boxes, scores, labels, _ = _clustered(5, 2, 16, 3)
     args = (torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(labels), 3)

@@ -126,3 +126,44 @@ def test_kernel_at_the_retinanet_shape():
     labels = torch.from_numpy(np.random.RandomState(13).randint(0, 91, (16, 2000))).cuda()
     offset = labels.float()[..., None] * (boxes.amax(dim=(1, 2))[:, None, None] + 1.0)
     _assert_equal_for_ks((boxes + offset).contiguous(), scores, 0.5, [300])
+
+
+def _majority_inputs(case):
+    """(boxes, scores, labels, valid or None, num_classes, max_output) on the
+    card at the shapes majority-vote NMS takes on the port's paths."""
+    from object_detectors_tpu_torch.bench import nms_inputs
+
+    if case in ("uniform", "clustered", "adversarial"):  # the bench's, 512 x 256
+        boxes, scores, labels = (torch.from_numpy(a).cuda() for a in nms_inputs(case))
+        return boxes, scores, labels, None, 80, 100
+    groups, n, classes, k = {"yolo640": (128, 256, 80, 100), "serving yolo": (64, 512, 80, 100),
+                             "yolo_lvis416": (16, 300, 1203, 300)}[case]
+    boxes, scores, valid = _clustered(groups + n, groups, n)
+    labels = torch.from_numpy(np.random.RandomState(n).randint(0, classes, (groups, n))).cuda()
+    return boxes, scores, labels, valid, classes, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["yolo640", "serving yolo", "yolo_lvis416", "uniform",
+                                  "clustered", "adversarial"])
+def test_nms_majority_takes_its_kept_set_from_one_launch(case):
+    """nms_majority on the card: identical to the scan method, one NMS
+    kernel launch a call and no host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from object_detectors_tpu_torch.ops.nms import nms_majority
+
+    boxes, scores, labels, valid, classes, k = _majority_inputs(case)
+    args = (boxes, scores, labels, classes, 0.6, k, valid)
+    nms_majority(*args)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = K.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fixed = nms_majority(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert K.launches == before + 1
+    scan = nms_majority(*args, method="scan")
+    assert all(torch.equal(a, b) for a, b in zip(fixed, scan))
+    assert bool(fixed[3].any())

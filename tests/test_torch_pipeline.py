@@ -13,6 +13,7 @@ import torch
 
 from object_detectors_tpu.kernels.preprocess import preprocess_images as jax_preprocess
 from object_detectors_tpu_torch import pipeline as PL
+from object_detectors_tpu_torch import serve as S
 from test_torch_yolo import LAYERS, NUM_CLASSES, randomized_flax_variables, torch_model
 
 # bench.py points JAX's persistent compile cache into the repository when
@@ -51,7 +52,7 @@ def test_uint8_pipeline_matches_bench_graph():
 
 
 def test_yolo_serving_pipeline_defaults_and_output():
-    pipe = PL.build_yolo_pipeline(num_classes=NUM_CLASSES, img_size=64, uint8_input=True,
+    pipe = S.build_yolo_pipeline(num_classes=NUM_CLASSES, img_size=64, uint8_input=True,
                                   backbone_layers=LAYERS, device="cpu")
     assert (pipe.topk, pipe.max_det, pipe.conf, pipe.iou_thr, pipe.dtype) == (
         512, 100, 0.1, 0.6, torch.bfloat16)

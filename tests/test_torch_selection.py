@@ -96,3 +96,19 @@ def test_radix_topk_multi_matches_jax_in_order():
         np.testing.assert_array_equal(_bits(ov), np.asarray(rv).view(np.uint32))
     with pytest.raises(ValueError, match="one k per"):
         SEL.radix_topk_multi([torch.zeros(3)], (1, 2))
+
+
+@pytest.mark.parametrize("n,k,share", [(700, 64, 0.5), (300, 100, 0.2), (40, 40, 0.7)])
+def test_radix_topk_masked_matches_jax(n, k, share):
+    """Scores where valid, -inf elsewhere; at share 0.2 fewer than k are
+    valid, so -inf entries are selected."""
+    scores = _scores(n + 1, 3, n)
+    valid = np.random.RandomState(n).rand(3, n) < share
+    out_v, out_i = SEL.radix_topk_masked(torch.from_numpy(scores), torch.from_numpy(valid), k)
+    for row in range(3):
+        ref_v, ref_i = jax_sel.radix_topk_masked(jnp.asarray(scores[row]),
+                                                 jnp.asarray(valid[row]), k)
+        np.testing.assert_array_equal(out_i[row].numpy(), np.asarray(ref_i))
+        np.testing.assert_array_equal(_bits(out_v[row]), np.asarray(ref_v).view(np.uint32))
+    if share == 0.2:
+        assert torch.isneginf(out_v).any()
