@@ -7,7 +7,8 @@ Phases, each printed as JSON lines:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions; exits 1 without a GPU.
-2. build: compiles the four CUDA kernels from
+2. build: compiles the four CUDA sources (five kernels: roi_align.cu holds
+   the RoIAlign forward and backward) from
    ``object_detectors_tpu_torch/csrc`` with nvcc, one process per source, all
    at once; each one timed.
 3. kernel: holds the normalize kernel bitwise equal to its plain PyTorch
@@ -96,6 +97,29 @@ Phases, each printed as JSON lines:
    NMS kernel timed at its shape there (16 x 2000, K 300), with its phases.
 18. retinanet_consistency: one image in f32 (TF32 off) on the GPU and on
    the CPU: the head's outputs within the stated tolerance.
+19. kernel (roi_align_backward): the RoIAlign backward kernel against its
+   plain version (autograd of the plain pooler) at the Faster R-CNN
+   training shape, a cotangent [2, 512, 7, 7, 256] on P2-P5 of an 800²
+   image, and at an odd one, in f32 (within ROI_F32_*: the f32 atomics add
+   in a changing order) and bf16 (within one bf16 ulp of max(|plain|, 1));
+   its time beside the plain version's and the bound from the bytes it must
+   move and the operations (the atomics' adds among them) its samples need.
+20. yolo_train: the port bench's yolo_train416 row (batch 128, 416², bf16
+   activations): images/s, ms a step, mfu, peak memory, a finite loss;
+   the tiny Darknet step of ``train/tiny_steps.py`` at 96 px (TF32 off) on
+   the GPU against the CPU: losses within its TRAIN_LOSS_RTOL, the update
+   as a whole in f32 and each tensor's in f64 within its stated shares.
+   Prints whether TF32 is on.
+21. frcnn_train: Faster R-CNN R50-FPN training at 800², batch 2 (RPN
+   2000/2000, 512 RoIs a image, f32, SGD 0.0025 with momentum, weight decay
+   and warmup): ms a step, images/s, finite losses, and per step exactly one
+   launch of the RoIAlign forward, of its backward and of NMS; one more
+   step with the three wrappers watched, each kernel then held against its
+   plain version at the inputs that step gave it (the RPN filter's 2 x 5
+   groups at K 2000 identical, the f32 RoIAlign forward and backward at
+   512 RoIs an image within ROI_F32_*), NMS timed there; the tiny Faster
+   R-CNN step of ``train/tiny_steps.py`` at 64 px on the GPU against the
+   CPU with the same draws.
 
 The line before the last is the kernel table as JSON (only numbers this run
 measured, and the bounds); the last line is
@@ -104,6 +128,7 @@ measured, and the bounds); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -384,18 +409,13 @@ def check_roi_align(KR, case, maps, boxes, size=IMG, out_size=(7, 7)):
     return err, staged
 
 
-def roi_gather_bytes(KR, maps, boxes, staged, size=IMG, out_size=(7, 7), s=2):
-    """The bytes a RoIAlign launch gathers from L2 into the SMs: (before,
-    after). Before, a kernel that reads every sample's corners from global
-    memory: the four corners of every sample inside the map, all channels,
-    each sample again. After: the footprint of every RoI the kernel staged
-    (``staged``, its own report), once, and the corners of the others as
-    before."""
+def inside_samples(hws, boxes, size, out_size=(7, 7), s=2) -> torch.Tensor:
+    """The samples of each RoI of ``boxes`` [B, N, 4] that lie inside its
+    level map (the level maps' sizes ``hws``, of a ``size``² image): [B * N]."""
     from object_detectors_tpu_torch.ops import roi_align as R
 
     flat = boxes.reshape(-1, 4)
-    hws = [m.shape[-2:] for m in maps]
-    lv = R.assign_fpn_levels(flat, len(maps)).long()
+    lv = R.assign_fpn_levels(flat, len(hws)).long()
 
     def per_roi(values):
         return torch.tensor(values, dtype=torch.float32, device=boxes.device)[lv]
@@ -404,7 +424,17 @@ def roi_gather_bytes(KR, maps, boxes, staged, size=IMG, out_size=(7, 7), s=2):
                                                       for hw in hws]),
                                        per_roi([h for h, _ in hws]), per_roi([w for _, w in hws]),
                                        out_size, s)
-    samples = (~oy).flatten(1).sum(1) * (~ox).flatten(1).sum(1)
+    return (~oy).flatten(1).sum(1) * (~ox).flatten(1).sum(1)
+
+
+def roi_gather_bytes(KR, maps, boxes, staged, size=IMG, out_size=(7, 7), s=2):
+    """The bytes a RoIAlign launch gathers from L2 into the SMs: (before,
+    after). Before, a kernel that reads every sample's corners from global
+    memory: the four corners of every sample inside the map, all channels,
+    each sample again. After: the footprint of every RoI the kernel staged
+    (``staged``, its own report), once, and the corners of the others as
+    before."""
+    samples = inside_samples([m.shape[-2:] for m in maps], boxes, size, out_size, s)
     foot = KR.staged_rois(maps, boxes, (size, size), out_size, s)[1].flatten()
     pixel = maps[0].shape[1] * maps[0].element_size()
     st = staged.flatten().bool()
@@ -507,21 +537,28 @@ def greedy_iou_count(boxes, scores, keep, ok, thr) -> int:
     return int(((first + 1) * suppressed).sum()) + int((n_kept * (n_kept - 1) // 2).sum())
 
 
-def nms_kernel_calls(KN, fn):
-    """Run fn() with the NMS kernel's wrapper watched: the arguments of every
-    call it made."""
+@contextlib.contextmanager
+def watched(module, name):
+    """While inside, every call of the kernel wrapper ``module.name`` is
+    recorded: yields the list of their (args, kwargs), tensors copied as
+    they came in."""
     calls = []
 
-    def spy(*args, **kwargs):
-        calls.append((args, kwargs))
-        return greedy_nms_cuda(*args, **kwargs)
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        return type(a)(copy(x) for x in a) if isinstance(a, (list, tuple)) else a
 
-    greedy_nms_cuda, KN.greedy_nms_cuda = KN.greedy_nms_cuda, spy
+    def spy(*args, **kwargs):
+        calls.append((copy(args), kwargs))
+        return wrapper(*args, **kwargs)
+
+    wrapper = getattr(module, name)
+    setattr(module, name, spy)
     try:
-        fn()
+        yield calls
     finally:
-        KN.greedy_nms_cuda = greedy_nms_cuda
-    return calls
+        setattr(module, name, wrapper)
 
 
 def nms_kernel_time(KN, b, s, thr, k, valid=None, plain_iters=2):
@@ -977,7 +1014,8 @@ def phase_retinanet_post(RN, KN, pipe_anchors):
         with torch.inference_mode():
             RN.retinanet_postprocess(logits, reg, pipe_anchors, level_sizes, (IMG, IMG), cfg)
 
-    calls = nms_kernel_calls(KN, postprocess)
+    with watched(KN, "greedy_nms_cuda") as calls:
+        postprocess()
     check(len(calls) == 1, f"the postprocess called the NMS kernel {len(calls)} times")
     (b, s, thr, k, valid), _ = calls[0]
     check(valid is None, "the postprocess passed the NMS kernel a valid mask")
@@ -1154,7 +1192,9 @@ def phase_nms_majority(N, KN, cases):
                              valid=None if v is None else v.cpu())
         same_scan = all(torch.equal(x, y) for x, y in zip(fixed, scan))
         same_cpu = all(torch.equal(x.cpu(), y) for x, y in zip(fixed, cpu))
-        (kb, ks, thr, kk, kv), _ = nms_kernel_calls(KN, call)[0]
+        with watched(KN, "greedy_nms_cuda") as calls:
+            call()
+        (kb, ks, thr, kk, kv), _ = calls[0]
         t = nms_kernel_time(KN, kb, ks, thr, kk, kv)
         timings[case] = {key: t[key] for key in MEASURED_NMS if key in t}
         emit(phase="nms_majority", case=case, groups=s.shape[0], n=s.shape[1],
@@ -1203,6 +1243,222 @@ def phase_yolo_neck(PL, u8):
         torch.backends.cudnn.allow_tf32 = allow
 
 
+def roi_backward_case(seed: int, b: int, n: int, size: int, c: int, dtype):
+    """Seeded R50-FPN level shapes (P2-P5 of a ``size``² image), RoIs and an
+    output cotangent [b, n, 7, 7, c] in ``dtype`` on the card."""
+    shapes = [(b, c, size // s, size // s) for s in (4, 8, 16, 32)]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn(b, n, 7, 7, c, generator=g, device="cuda").to(dtype)
+    return shapes, random_rois(seed, b, n, size), cot
+
+
+def roi_backward_work(shapes, boxes, cot, size, s=2):
+    """(bytes, operations, atomics) of one backward on these inputs: the
+    cotangent and boxes read once and the level maps' cotangents written
+    once; for every sample inside its map and channel, four weights, four
+    products and four atomic adds, and a divide per bin and channel."""
+    c = cot.shape[-1]
+    inside = int(inside_samples([sh[2:] for sh in shapes], boxes, size, cot.shape[2:4],
+                                s).sum())
+    moved = (cot.numel() * cot.element_size() + boxes.numel() * 4
+             + sum(int(np.prod(sh)) for sh in shapes) * cot.element_size())
+    return moved, inside * c * 12 + cot.numel(), inside * c * 4
+
+
+def check_roi_backward(KB, case, shapes, boxes, cot, size):
+    """Kernel vs plain backward on one input: f32 within ROI_F32_*, bf16
+    within one bf16 ulp of max(|plain|, 1). The atomics' change of order
+    errs in proportion to the values summed, so where the cotangent and the
+    result lie below 1 (a training step's do, by orders) the absolute
+    tolerance shrinks with the larger of their largest values. Returns the
+    max abs error."""
+    dtype = cot.dtype
+    got = KB.multiscale_roi_align_backward_cuda(cot, boxes, shapes, (size, size), dtype=dtype)
+    ref = KB.multiscale_roi_align_backward_reference(cot, boxes, shapes, (size, size),
+                                                     dtype=dtype)
+    torch.cuda.synchronize()
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    ulp_ok = all(bool(((g.float() - r.float()).abs()
+                       <= (r.float().abs().clamp(min=1.0).log2().floor() - 7).exp2()).all())
+                 for g, r in zip(got, ref))
+    emit(phase="kernel", name="roi_align_backward", case=case, dtype=str(dtype),
+         cotangent_shape=list(cot.shape), level_shapes=[list(sh) for sh in shapes],
+         max_abs_err=err, max_abs_ref=max(r.float().abs().max().item() for r in ref),
+         max_abs_cotangent=cot.float().abs().max().item(),
+         within_one_bf16_ulp_of_max_plain_1=ulp_ok,
+         channels_last=all(g.is_contiguous(memory_format=torch.channels_last) for g in got))
+    scale = min(1.0, max([cot.float().abs().max().item()]
+                         + [r.float().abs().max().item() for r in ref]))
+    for g, r in zip(got, ref):
+        check(g.dtype == dtype and g.shape == r.shape, f"RoIAlign backward output ({case})")
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=ROI_F32_RTOL, atol=ROI_F32_ATOL * scale)
+    check(dtype == torch.float32 or ulp_ok,
+          f"bf16 RoIAlign backward is not within one ulp of max(|plain|, 1) ({case})")
+    return err
+
+
+def phase_roi_align_backward_kernel(KB):
+    """The backward kernel against its plain version (f32 and bf16) at the
+    Faster R-CNN training shape, [2, 512, 7, 7, 256] on P2-P5 of an 800²
+    image, and an odd one; then timed at the training shape in f32, the
+    dtype Faster R-CNN trains in, and in bf16."""
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = {"Faster R-CNN training shape": (roi_backward_case(0, 2, 512, 800, 256, dtype),
+                                                 800),
+                 "odd: 3 x 37 RoIs, C=20, 224²": (roi_backward_case(1, 3, 37, 224, 20, dtype),
+                                                  224)}
+        for case, ((shapes, boxes, cot), size) in cases.items():
+            worst = max(worst, check_roi_backward(KB, case, shapes, boxes, cot, size))
+        shapes, boxes, cot = cases["Faster R-CNN training shape"][0]
+        ms = cuda_ms(lambda: KB.multiscale_roi_align_backward_cuda(cot, boxes, shapes,
+                                                                   (800, 800), dtype=dtype), 20)
+        plain_ms = cuda_ms(lambda: KB.multiscale_roi_align_backward_reference(
+            cot, boxes, shapes, (800, 800), dtype=dtype), 2)
+        moved, ops, atomics = roi_backward_work(shapes, boxes, cot, 800)
+        bound, bound_by = time_bound(moved, ops)
+        timing[str(dtype)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        emit(phase="kernel_time", name="roi_align_backward", dtype=str(dtype),
+             cotangent_shape=list(cot.shape), bytes=moved, operations=ops, atomics=atomics,
+             atomics_per_s=atomics / (ms * 1e-3), library_ms=None, **timing[str(dtype)])
+    return worst, timing
+
+
+def tf32_state():
+    return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def check_update_gap(TS, phase, what, models, before, worst_share=None, norm_share=None):
+    """The parameter updates of a tiny step on the GPU against the CPU
+    (``tiny_steps.update_gap``), each tensor's largest difference as a
+    share of its largest update at most ``worst_share``, the difference's
+    norm as a share of the update's at most ``norm_share``."""
+    gap = TS.update_gap(models, before)
+    emit(phase=phase, what=f"{what}: GPU vs CPU parameter updates", **gap,
+         worst_share_tolerance=worst_share, norm_share_tolerance=norm_share)
+    check(worst_share is None or gap["worst_share"] <= worst_share,
+          f"{phase}: GPU update of {gap['at']} off by {gap['worst_share']:.3g} of its largest "
+          f"update")
+    check(norm_share is None or gap["norm_share"] <= norm_share,
+          f"{phase}: GPU updates off by {gap['norm_share']:.3g} of their norm")
+
+
+def phase_yolo_train(B):
+    """yolo_train416 (the port bench's row) and the tiny Darknet step of
+    ``tiny_steps`` at 96 px in f32 and f64 (TF32 off) on the GPU against
+    the CPU."""
+    from object_detectors_tpu_torch.train import tiny_steps as TS
+
+    emit(phase="yolo_train", tf32=tf32_state())
+    t = B.train_step_timing()
+    check(math.isfinite(t["loss"]), "yolo_train416 loss is not finite")
+    emit(phase="yolo_train", row="yolo_train416", batch=128, img=416, **t)
+
+    for dtype in (torch.float32, torch.float64):
+        models, before, metrics = TS.yolo_step_on_both(dtype)
+        what = f"tiny Darknet 96 px, {dtype}"
+        for key in ("loss", "sub_losses", "stats"):
+            g, c = metrics["cuda"][key].cpu(), metrics["cpu"][key]
+            emit(phase="yolo_train", what=f"{what}, GPU vs CPU {key}",
+                 max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+            torch.testing.assert_close(g, c, rtol=TS.TRAIN_LOSS_RTOL, atol=1e-6)
+        if dtype == torch.float32:
+            check_update_gap(TS, "yolo_train", what, models, before,
+                             norm_share=TS.YOLO_F32_UPDATE_NORM)
+        else:
+            check_update_gap(TS, "yolo_train", what, models, before,
+                             worst_share=TS.YOLO_F64_UPDATE_SHARE)
+    return t
+
+
+def check_frcnn_train_kernels(KR, KB, KN, step):
+    """Each kernel of a Faster R-CNN training step against its plain
+    version at the inputs that step gave it: the RPN filter's NMS (B x 5
+    groups of up to 2000, K 2000, IoU 0.7) identical, the RoIAlign forward
+    (f32 maps, 512 RoIs an image) within ROI_F32_*, its backward within
+    ROI_F32_* too. Returns the NMS kernel's timing at its call's inputs."""
+    with (watched(KN, "greedy_nms_cuda") as nms, watched(KR, "multiscale_roi_align_cuda") as fwd,
+          watched(KB, "multiscale_roi_align_backward_cuda") as bwd):
+        step()
+    calls = {"nms": nms, "roi_align": fwd, "roi_align_bwd": bwd}
+    for name, seen in calls.items():
+        check(len(seen) == 1, f"a frcnn_train800 step called the {name} kernel {len(seen)} "
+                              f"times")
+    (b, sc, thr, k, valid), _ = calls["nms"][0]
+    check_nms(KN, "frcnn_train800 RPN filter, a step's own candidates", b, sc, thr, k, valid)
+    t = nms_kernel_time(KN, b, sc, thr, k, valid)
+    emit(phase="kernel_time", name="nms", case="frcnn_train800 RPN filter", groups=sc.shape[0],
+         n=sc.shape[1], max_output=k, iou_threshold=thr, **t)
+    (maps, boxes, size, out, ratio), _ = calls["roi_align"][0]
+    check(ratio == 2 and size[0] == size[1], f"frcnn_train800 pooled at {size}, ratio {ratio}")
+    check_roi_align(KR, "frcnn_train800, a step's own maps and sampled RoIs", maps, boxes,
+                    size[0], out)
+    (cot, bboxes, shapes, bsize, bout, bratio, dtype), _ = calls["roi_align_bwd"][0]
+    check(bout == (7, 7) and bratio == 2 and dtype == cot.dtype,
+          f"frcnn_train800's RoIAlign backward at {bout}, ratio {bratio}, {dtype}")
+    check(torch.equal(bboxes, boxes), "the RoIAlign backward took other boxes than its forward")
+    check_roi_backward(KB, "frcnn_train800, a step's own cotangent and RoIs", shapes, bboxes,
+                       cot, bsize[0])
+    return t
+
+
+def phase_frcnn_train(KR, KB, KN):
+    """frcnn_train800: R50-FPN Faster R-CNN, 91 classes, 800², batch 2, RPN
+    2000/2000, 512 RoIs a image, f32, SGD at lr 0.0025 with momentum 0.9,
+    weight decay 1e-4, linear warmup (1000 steps from 1/1000) and the
+    multistep decay at epochs 16 and 22: 2 warm-up steps, then timed steps
+    whose kernel launches are counted; then one more step whose kernels
+    are held against their plain versions at that step's inputs, and the
+    tiny Faster R-CNN step of ``tiny_steps`` at 64 px on the GPU against
+    the CPU with the same draws."""
+    from object_detectors_tpu_torch.analysis.train_stages import FRCNN_BATCH, frcnn_train_setup
+    from object_detectors_tpu_torch.train import tiny_steps as TS
+    from object_detectors_tpu_torch.train import trainer
+
+    emit(phase="frcnn_train", tf32=tf32_state())
+    state, batches = frcnn_train_setup()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for i in range(2):
+        _, total, _ = trainer.frcnn_train_step(state, *batches[i % 3], generator=gen)
+    float(total)  # host read
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    KR.launches = KB.launches = KN.launches = 0
+    t0 = time.perf_counter()
+    for i in range(iters):
+        _, total, losses = trainer.frcnn_train_step(state, *batches[i % 3], generator=gen)
+    last = float(total)  # one final host read
+    dt = (time.perf_counter() - t0) / iters
+    launches = {"roi_align": KR.launches, "roi_align_bwd": KB.launches, "nms": KN.launches}
+    losses = {k: v.item() for k, v in losses.items()}
+    emit(phase="frcnn_train", row="frcnn_train800", batch=FRCNN_BATCH, img=800,
+         ms_per_step=dt * 1e3, imgs_per_s=FRCNN_BATCH / dt,
+         loss=last, losses=losses,
+         lr_last_step=state.optimizer.schedule(state.optimizer.count - 1),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         launches_per_step={k: v / iters for k, v in launches.items()})
+    check(math.isfinite(last) and all(math.isfinite(v) for v in losses.values()),
+          "frcnn_train800 losses are not finite")
+    for name in ("roi_align", "roi_align_bwd", "nms"):
+        check(launches[name] == iters, f"frcnn_train800 launched the {name} kernel "
+                                       f"{launches[name]} times in {iters} steps")
+    nms_time = check_frcnn_train_kernels(
+        KR, KB, KN, lambda: trainer.frcnn_train_step(state, *batches[iters % 3], generator=gen))
+
+    models, before, tiny, tiny_launches = TS.frcnn_step_on_both()
+    for k, v in tiny["cpu"].items():
+        emit(phase="frcnn_train", what=f"tiny Faster R-CNN 64 px, GPU vs CPU {k}",
+             gpu=tiny["cuda"][k].item(), cpu=v.item())
+        torch.testing.assert_close(tiny["cuda"][k].cpu(), v, rtol=TS.FRCNN_LOSS_RTOL, atol=1e-6)
+    check(tiny_launches == {"cpu": (0, 0), "cuda": (1, 1)},
+          f"the tiny Faster R-CNN step's RoIAlign launches: {tiny_launches}")
+    check_update_gap(TS, "frcnn_train", "tiny Faster R-CNN 64 px", models, before,
+                     worst_share=TS.FRCNN_UPDATE_SHARE)
+    return dict(ms_per_step=dt * 1e3, launches=launches, nms=nms_time)
+
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -1221,6 +1477,7 @@ def main() -> int:
     from object_detectors_tpu_torch.kernels import nms as KN
     from object_detectors_tpu_torch.kernels import preprocess as P
     from object_detectors_tpu_torch.kernels import roi_align as KR
+    from object_detectors_tpu_torch.kernels import roi_align_bwd as KB
     from object_detectors_tpu_torch.models import retinanet as RN
     from object_detectors_tpu_torch.models import rpn as RPN
     from object_detectors_tpu_torch.ops import nms as N
@@ -1266,15 +1523,25 @@ def main() -> int:
     retina_nms = phase_retinanet_post(RN, KN, anchors)
     phase_retinanet_consistency(PL, P, retina_batches[0][:1])
 
+    bwd_err, bwd_timing = phase_roi_align_backward_kernel(KB)
+    yolo_train = phase_yolo_train(B)
+    frcnn_train = phase_frcnn_train(KR, KB, KN)
+
     roi["max_abs_err"] = max(roi["max_abs_err"], roi_err)
+    roi["launches_by_path"] = {"frcnn640": roi["launches"],
+                               "frcnn_train800": frcnn_train["launches"]["roi_align"]}
+    roi["launches"] = sum(roi["launches_by_path"].values())
     retina_pre = sum(retina_launches[mode]["preprocess"] for mode in retina_launches)
     retina_nms_launches = sum(retina_launches[mode]["nms"] for mode in retina_launches)
     nms["launches_by_path"] = {"yolo640": yolo_nms, "serving": serving_launches["nms"],
                                "yolo_lvis416": lvis_launches["nms"],
                                "nms_p50_latency": latency_nms,
                                "frcnn640": frcnn_launches["nms"],
-                               "retinanet640": retina_nms_launches}
+                               "retinanet640": retina_nms_launches,
+                               "frcnn_train800": frcnn_train["launches"]["nms"]}
     nms["launches"] = sum(nms["launches_by_path"].values())
+    nms["frcnn_train800_rpn_shape"] = {key: frcnn_train["nms"][key] for key in MEASURED_NMS
+                                       if key in frcnn_train["nms"]}
     nms["retinanet_postprocess_shape"] = retina_nms
     nms["nms_majority_calls"] = majority
     kernels = [{
@@ -1321,6 +1588,16 @@ def main() -> int:
         "frcnn640_backbone": frcnn_fused,
         # library_ms: the unfused cuDNN Bottleneck at the same shapes (no
         # single PyTorch call computes a whole block)
+    }, {
+        "name": "multiscale_roi_align_bwd", "route": "cuda",
+        "source": "object_detectors_tpu_torch/csrc/roi_align.cu",
+        "replaces": "object_detectors_tpu/ops/roi_align.py:381 (XLA VJP, no pallas_call)",
+        "launches": frcnn_train["launches"]["roi_align_bwd"],
+        "launches_by_path": {"frcnn_train800": frcnn_train["launches"]["roi_align_bwd"]},
+        "max_abs_err": bwd_err,
+        **bwd_timing["torch.float32"],  # Faster R-CNN trains in f32
+        "bf16": bwd_timing["torch.bfloat16"],
+        "library_ms": None,  # no single PyTorch call computes this function
     }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,21 +15,28 @@ Rows, each on seeded random weights and its own seeded uint8 batches:
    ``serve.BatchedDetectionServer``, flushes of 64 and 16, a pool of 32
    images on the card;
 6. nms_p50_latency: ``nms_majority`` alone at batch 512, 256 candidates, 80
-   classes, 100 detections, on uniform, clustered and adversarial boxes.
+   classes, 100 detections, on uniform, clustered and adversarial boxes;
+7. yolo_train416: the YOLOv3 train step (``train/trainer.py``: forward in
+   train mode, loss, backward, SGD at lr 1e-3 with momentum 0.9), Darknet-53
+   with 80 classes at 416², bf16 activations and f32 parameters, batch 128,
+   three pre-staged float batches of 32 GT slots, 2 warm-up steps, 10 timed
+   steps and one host read of the last loss (runs by default, as in the
+   root bench, not with ``--quick`` or ``--configs`` unless named there as
+   ``train_step``).
 
 Timing as the reference: distinct uint8 batches staged on the card before
 the timed window, back-to-back calls, one host read of the last output at
 the end; host-to-device copies are outside it, the cast and normalize
 inside. Prints one JSON line: ``metric``, ``value``, ``unit``, ``configs``,
 ``e2e``, ``device``, and ``card`` (nvidia-smi's name and power limit, also
-in every row). Left out: ``vs_baseline`` (it divides by a TPU target),
-``--protocol`` (waits for the data and eval port) and ``yolo_train416``
-(waits for training).
+in every row). Left out: ``vs_baseline`` (it divides by a TPU target) and
+``--protocol`` (waits for the data and eval port).
 
 ``mfu`` of a row is the floating-point operations that
 ``torch.utils.flop_counter.FlopCounterMode`` counts over one call, divided
 by the time of a call and the H100 SXM's dense bf16 tensor-core peak. The
-count sees the matrix products and convolutions PyTorch runs; it misses the
+count sees the matrix products and convolutions PyTorch runs (for
+yolo_train416 those of one whole step, forward and backward); it misses the
 kernels launched through ctypes (normalize, NMS, RoIAlign and, off in every
 row, the fused bottleneck) and all elementwise work.
 
@@ -48,10 +55,14 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from object_detectors_tpu_torch import serve as S
+from object_detectors_tpu_torch.models import yolo_criterion as YC
+from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
 from object_detectors_tpu_torch.ops.nms import nms_majority
 from object_detectors_tpu_torch.pipeline import (
     build_frcnn_pipeline_uint8, build_pipeline, build_pipeline_uint8,
 )
+from object_detectors_tpu_torch.train import optim
+from object_detectors_tpu_torch.train import trainer
 
 BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 tensor cores, published
 
@@ -128,6 +139,70 @@ def _run_row(infer, seed, bs, img_size, warmup, iters, device):
     batches = _uint8_batches(seed, bs, img_size)
     dt = _timed_stream(infer, batches, warmup, iters, device)
     return bs / dt, _mfu(_graph_flops(infer, torch.from_numpy(batches[0]).to(device)), dt)
+
+
+def train_batches(bs: int, img_size: int, num_classes: int = 80, slots: int = 32,
+                  seed: int = 3):
+    """The train row's three batches, as the root bench draws them: images
+    uniform in [0, 1), GT boxes (relative cxcywh) in [0.25, 0.75), labels
+    below ``num_classes``, each slot valid with probability one half."""
+    rng = np.random.RandomState(seed)
+    return [dict(images=rng.rand(bs, img_size, img_size, 3).astype(np.float32),
+                 gt_boxes=rng.rand(bs, slots, 4).astype(np.float32) * 0.5 + 0.25,
+                 gt_labels=rng.randint(0, num_classes, (bs, slots)),
+                 gt_valid=rng.rand(bs, slots) < 0.5) for _ in range(3)]
+
+
+def yolo_train_setup(bs=128, img_size=416, device="cuda", model=None):
+    """(state, loss configuration, the three batches on ``device``) of
+    yolo_train416, as the root bench's run_train_step sets it up: its
+    optimizer is optax.sgd(1e-3, momentum=0.9), no weight decay and a
+    constant rate. ``model`` defaults to Darknet-53 YOLOv3 with 80 classes,
+    bf16 activations, seeded random weights."""
+    num_classes = 80
+    model = model or init_yolo_(YoloHead(num_classes, dtype=torch.bfloat16), seed=0)
+    tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 1e-3, weight_decay=0.0,
+                                                    momentum=0.9),
+                              optim.SchedulerConfig())  # constant for 100 steps
+    batches = [{k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
+               for b in train_batches(bs, img_size, num_classes)]
+    return (trainer.create_yolo_train_state(model, tx, device),
+            YC.YoloLossConfig(num_classes=num_classes, img_size=img_size), batches)
+
+
+def train_step_timing(bs=128, img_size=416, warmup=2, iters=10, device="cuda",
+                      model=None):
+    """yolo_train416 with its readings: images/s, ms a step, mfu (the
+    FlopCounterMode count of one step, forward and backward), the peak
+    device memory of the timed steps (``torch.cuda.max_memory_allocated``;
+    None on the CPU) and the last loss."""
+    state, cfg, batches = yolo_train_setup(bs, img_size, device, model)
+
+    def step(b):
+        return trainer.yolo_train_step(state, b["images"], b["gt_boxes"], b["gt_labels"],
+                                       b["gt_valid"], cfg, cfg.num_classes)[1]["loss"]
+
+    for i in range(warmup):
+        loss = step(batches[i % 3])
+    float(loss)  # host read
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        loss = step(batches[i % 3])
+    last = float(loss)  # one final host read
+    dt = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    return {"imgs_per_s": bs / dt, "ms_per_step": dt * 1e3,
+            "mfu": _mfu(_graph_flops(step, batches[0]), dt), "max_memory_gb": peak,
+            "loss": last}
+
+
+def run_train_step(bs=128, img_size=416, warmup=2, iters=10, device="cuda"):
+    """yolo_train416: (images/s, mfu)."""
+    t = train_step_timing(bs, img_size, warmup, iters, device)
+    return t["imgs_per_s"], t["mfu"]
 
 
 def run_retinanet(bs=16, img_size=640, warmup=2, iters=8, device="cuda"):
@@ -263,8 +338,8 @@ def main(argv=None):
                     help="single small batch size for smoke runs")
     ap.add_argument("--full", action="store_true", help="batch sweep 2 to 128")
     ap.add_argument("--configs", nargs="*", default=None,
-                    help="subset of {yolo640,retinanet640,frcnn640,yolo_lvis416,serving}; "
-                         "default: all five")
+                    help="subset of {yolo640,retinanet640,frcnn640,yolo_lvis416,train_step,"
+                         "serving}; default: all six")
     ap.add_argument("--img-size", type=int, default=640)
     ap.add_argument("--batch-sizes", type=int, nargs="*", default=None)
     ap.add_argument("--device-resident", action="store_true",
@@ -297,6 +372,9 @@ def main(argv=None):
     if "yolo_lvis416" in wanted:
         v, m = run_yolo_lvis()
         configs["yolo_lvis416"] = {"value": v, "mfu": m}
+    if "train_step" in wanted or (args.configs is None and not args.quick):
+        v, m = run_train_step()
+        configs["yolo_train416"] = {"value": v, "mfu": m}
     if not args.quick:
         nms_res = run_nms_latency()
         configs["nms_p50_latency"] = {"value": nms_res["uniform"]["p50_us"],

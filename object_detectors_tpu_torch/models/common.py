@@ -14,9 +14,16 @@ from torch import nn
 
 
 class ConvBN(nn.Module):
-    """conv + eval batch norm (eps 1e-5) + leaky_relu(0.1): the 'CBL' block.
+    """conv + batch norm (eps 1e-5) + leaky_relu(0.1): the 'CBL' block.
     Padding is (k-1)//2 on every side, also at stride 2, as in the Flax
-    module."""
+    module.
+
+    ``train=False`` normalizes with the running statistics. ``train=True``
+    is Flax's ``BatchNorm(use_running_average=False, momentum=0.9)``: it
+    normalizes with the batch mean and the biased batch variance, both in
+    float32 whatever the activation dtype, and moves the running statistics
+    by 0.1 toward them, the running variance toward the biased variance
+    (PyTorch's own update takes the unbiased one, n / (n - 1) larger)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  strides: int = 1):
@@ -25,12 +32,23 @@ class ConvBN(nn.Module):
                               padding=(kernel_size - 1) // 2, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         conv = self.conv
         x = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
         bn = self.bn
-        x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         False, 0.0, bn.eps)
+        if not train:
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             False, 0.0, bn.eps)
+            return F.leaky_relu(x, 0.1)
+        # the batch statistics come out of the normalization itself (f32 mean
+        # and 1 / sqrt(var + eps) of the biased variance); the running
+        # statistics are left to the update below
+        x, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True,
+                                                  0.0, bn.eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(bn.eps).clamp(min=0).float()
+            bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            bn.running_var.mul_(0.9).add_(var, alpha=0.1)
         return F.leaky_relu(x, 0.1)
 
 

@@ -24,8 +24,8 @@ class ResidualBlock(nn.Module):
         self.conv1 = ConvBN(planes[1], planes[0], 1)
         self.conv2 = ConvBN(planes[0], planes[1], 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.conv1(x)) + x
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv2(self.conv1(x, train), train) + x
 
 
 class DarkNet(nn.Module):
@@ -46,13 +46,14 @@ class DarkNet(nn.Module):
                 self.add_module(f"stage{stage + 1}_block{i}", ResidualBlock(planes))
             prev = planes[1]
 
-    def forward(self, x: torch.Tensor):
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """``train``: batch norm with the batch statistics (``ConvBN``)."""
+        x = self.stem(x, train)
         feats = []
         for stage, blocks in enumerate(self.layers):
-            x = getattr(self, f"down{stage + 1}")(x)
+            x = getattr(self, f"down{stage + 1}")(x, train)
             for i in range(blocks):
-                x = getattr(self, f"stage{stage + 1}_block{i}")(x)
+                x = getattr(self, f"stage{stage + 1}_block{i}")(x, train)
             if stage >= 2:  # C3, C4, C5
                 feats.append(x)
         return tuple(feats)

@@ -1,8 +1,10 @@
-"""Faster R-CNN with a ResNet-FPN backbone, inference only (port of the JAX
-package's ``models/faster_rcnn.py``): backbone + FPN (P2-P6) -> RPN head ->
-anchors, decode and proposal filter -> multiscale RoIAlign over P2-P5 ->
-TwoMLPHead -> FastRCNNPredictor -> postprocess. Activations run in
-``dtype``; parameters, anchors and box math stay float32.
+"""Faster R-CNN with a ResNet-FPN backbone (port of the JAX package's
+``models/faster_rcnn.py``): backbone + FPN (P2-P6) -> RPN head -> anchors,
+decode and proposal filter -> multiscale RoIAlign over P2-P5 -> TwoMLPHead
+-> FastRCNNPredictor -> postprocess, or in training the four losses
+(the RPN's on its anchors; the box head's on the sampled proposals and GT
+boxes). Activations run in ``dtype``; parameters, anchors and box math stay
+float32.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ from torch import nn
 from object_detectors_tpu_torch.models import anchors as anchor_lib
 from object_detectors_tpu_torch.models.resnet import BackboneWithFPN, ResNet
 from object_detectors_tpu_torch.models.roi_heads import (
-    FastRCNNPredictor, RoIHeadsConfig, TwoMLPHead, postprocess_detections,
+    FastRCNNPredictor, RoIHeadsConfig, TwoMLPHead, fastrcnn_loss, postprocess_detections,
+    select_training_samples, training_tfidf_scale,
 )
-from object_detectors_tpu_torch.models.rpn import RPNConfig, RPNHead, filter_proposals
+from object_detectors_tpu_torch.models.rpn import (
+    RPNConfig, RPNHead, filter_proposals, rpn_loss,
+)
 from object_detectors_tpu_torch.ops.boxes import decode_boxes
 from object_detectors_tpu_torch.ops.roi_align import pool_multiscale
 
@@ -33,7 +38,8 @@ class FasterRCNNConfig:
 
 class FasterRCNN(nn.Module):
     """Images [B, H, W, 3] (the JAX layout, normalized) -> (boxes [B, D, 4],
-    scores [B, D], labels [B, D] 1-based, valid [B, D])."""
+    scores [B, D], labels [B, D] 1-based, valid [B, D]); with ``train`` the
+    loss dict."""
 
     def __init__(self, cfg: FasterRCNNConfig = FasterRCNNConfig(),
                  dtype: torch.dtype = torch.float32):
@@ -47,24 +53,42 @@ class FasterRCNN(nn.Module):
         self.box_predictor = FastRCNNPredictor(1024, cfg.num_classes)
         self._anchors: dict = {}
 
-    def decode(self, feats, deltas: torch.Tensor, image_size) -> torch.Tensor:
-        """RPN deltas [B, A_total, 4] -> proposals decoded against the
-        anchors of these level maps (made once per image size, grids and
-        device)."""
+    def anchors(self, feats, image_size, device) -> torch.Tensor:
+        """The anchors [A_total, 4] of these level maps, made once per image
+        size, grids and device."""
         grids = tuple(tuple(f.shape[-2:]) for f in feats)
-        key = (tuple(image_size), grids, str(deltas.device))
+        key = (tuple(image_size), grids, str(device))
         if key not in self._anchors:
             sizes, ratios = anchor_lib.rpn_anchor_config()
             self._anchors[key] = torch.from_numpy(anchor_lib.grid_anchors(
-                image_size, grids, sizes[:len(grids)], ratios[:len(grids)])).to(deltas.device)
-        return decode_boxes(deltas.float(), self._anchors[key][None], self.cfg.rpn.box_weights)
+                image_size, grids, sizes[:len(grids)], ratios[:len(grids)])).to(device)
+        return self._anchors[key]
 
-    def forward(self, images: torch.Tensor, train: bool = False, tfidf=None, on_stage=None):
-        """``tfidf``: optional [num_classes] logit scale of the postprocess
-        (the JAX ``tfidf_post``). ``on_stage(name)``, when given, is called
-        after each stage."""
-        if train:
-            raise NotImplementedError("Faster R-CNN training is not ported yet")
+    def decode(self, feats, deltas: torch.Tensor, image_size) -> torch.Tensor:
+        """RPN deltas [B, A_total, 4] -> proposals decoded against the
+        anchors of these level maps."""
+        return decode_boxes(deltas.float(), self.anchors(feats, image_size, deltas.device)[None],
+                            self.cfg.rpn.box_weights)
+
+    def forward(self, images: torch.Tensor, gt_boxes=None, gt_labels=None, gt_valid=None,
+                train: bool = False, tfidf=None, class_weights=None,
+                generator: torch.Generator | None = None, uniforms=None, on_stage=None):
+        """``tfidf``: optional [num_classes] logit scale, of the training
+        classification loss and of the postprocess (the JAX ``tfidf_post``).
+        ``on_stage(name)``, when given, is called after each stage.
+
+        ``train``: GT boxes [B, M, 4] xyxy, labels [B, M] 1-based, valid
+        [B, M] -> dict(loss_classifier, loss_box_reg, loss_objectness,
+        loss_rpn_box_reg); ``class_weights`` [num_classes] weigh the CE.
+        The two samplers draw their uniforms from ``generator``, or take
+        ``uniforms = {"rpn": (u_pos, u_neg) [B, A_total], "roi": (u_pos,
+        u_neg) [B, P + M]}``. ``train`` needs the module in training mode:
+        in eval mode the backbone may take the fused forward-only blocks,
+        which pass no gradient."""
+        if train and (gt_boxes is None or gt_labels is None or gt_valid is None):
+            raise ValueError("train=True needs gt_boxes, gt_labels and gt_valid")
+        if train and not self.training:
+            raise ValueError("train=True needs the module in training mode (model.train())")
         mark = on_stage or (lambda name: None)
         cfg = self.cfg
         _, h, w, _ = images.shape
@@ -74,6 +98,10 @@ class FasterRCNN(nn.Module):
         mark("backbone+FPN")
         objectness, deltas, level_sizes = self.rpn_head(feats)
         mark("RPN head")
+        if train:
+            return self._losses(feats, objectness.float(), deltas.float(), level_sizes, (h, w),
+                                gt_boxes, gt_labels, gt_valid, tfidf, class_weights, generator,
+                                uniforms or {})
         boxes, _, valid = filter_proposals(self.decode(feats, deltas, (h, w)),
                                            objectness.float(), level_sizes, (h, w), cfg.rpn)
         mark("proposal filter")
@@ -86,6 +114,25 @@ class FasterRCNN(nn.Module):
                                      tfidf_post=1.0 if tfidf is None else tfidf)
         mark("postprocess")
         return out
+
+    def _losses(self, feats, objectness, deltas, level_sizes, image_size, gt_boxes, gt_labels,
+                gt_valid, tfidf, class_weights, generator, uniforms) -> dict:
+        cfg = self.cfg
+        anchors = self.anchors(feats, image_size, deltas.device)
+        proposals = decode_boxes(deltas.detach(), anchors[None], cfg.rpn.box_weights)
+        prop_boxes, _, prop_valid = filter_proposals(proposals, objectness, level_sizes,
+                                                     image_size, cfg.rpn, training=True)
+        rpn_losses = rpn_loss(objectness, deltas, anchors, gt_boxes, gt_valid, cfg.rpn,
+                              uniforms.get("rpn"), generator)
+        s_boxes, s_labels, reg_targets, _, s_sampled, _ = select_training_samples(
+            prop_boxes, prop_valid, gt_boxes, gt_labels, gt_valid, cfg.roi,
+            uniforms.get("roi"), generator)
+        pooled = pool_multiscale(feats[:4], s_boxes, image_size, cfg.roi.pool_size)
+        class_logits, box_regression = self.box_predictor(self.box_head(pooled.to(self.dtype)))
+        scale = training_tfidf_scale(gt_labels, gt_valid, cfg.roi, tfidf)
+        det_losses = fastrcnn_loss(class_logits.float() * scale, box_regression.float(),
+                                   s_labels, reg_targets, s_sampled, cfg.roi, class_weights)
+        return {**det_losses, **rpn_losses}
 
 
 @torch.no_grad()

@@ -87,11 +87,11 @@ class DetectionBranch(nn.Module):
         self.cbl5 = ConvBN(mid, wide, 3)
         self.conv_out = nn.Conv2d(wide, out_features, 1, bias=True)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         for i in range(5):
-            x = getattr(self, f"cbl{i}")(x)
+            x = getattr(self, f"cbl{i}")(x, train)
         branch = x
-        x = self.cbl5(x)
+        x = self.cbl5(x, train)
         w = self.conv_out
         out = F.conv2d(x, w.weight.to(x.dtype), w.bias.to(x.dtype))
         return out, branch
@@ -119,17 +119,19 @@ class YoloHead(nn.Module):
         self.lateral2 = ConvBN(256, 128, 1)
         self.embedding2 = DetectionBranch(128 + 256, 128, 256, out_f)
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, train: bool = False):
+        """``train``: batch norm with the batch statistics, updating the
+        running ones (``ConvBN``), as the Flax module's ``train=True``."""
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         x = x.contiguous(memory_format=torch.channels_last)
-        c3, c4, c5 = self.backbone(x)
+        c3, c4, c5 = self.backbone(x, train)
         x0, x1, x2 = self.neck((c5, c4, c3))
-        out0, branch0 = self.embedding0(x0)
+        out0, branch0 = self.embedding0(x0, train)
         # concat order [upsample(lateral), skip], as in the Flax graph
-        x1_in = torch.cat([upsample_nearest_2x(self.lateral1(branch0)), x1], 1)
-        out1, branch1 = self.embedding1(x1_in)
-        x2_in = torch.cat([upsample_nearest_2x(self.lateral2(branch1)), x2], 1)
-        out2, _ = self.embedding2(x2_in)
+        x1_in = torch.cat([upsample_nearest_2x(self.lateral1(branch0, train)), x1], 1)
+        out1, branch1 = self.embedding1(x1_in, train)
+        x2_in = torch.cat([upsample_nearest_2x(self.lateral2(branch1, train)), x2], 1)
+        out2, _ = self.embedding2(x2_in, train)
         # (stride 32, stride 16, stride 8) raw maps, NHWC
         return tuple(o.permute(0, 2, 3, 1) for o in (out0, out1, out2))
 

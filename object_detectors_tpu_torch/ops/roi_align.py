@@ -14,6 +14,9 @@ CUDA batch to the hand-written kernel of ``kernels/roi_align.py`` and a CPU
 batch to ``multiscale_roi_align_canvas``, the plain version, whose f32
 arithmetic is that of the JAX canvas pooler (levels stacked for one gather
 there, one flat buffer here; the samples and their weights are the same).
+Under autograd it is differentiable with respect to the maps (not the
+boxes): the backward is the kernel of ``kernels/roi_align_bwd.py`` for a
+CUDA batch and the autograd of the plain version for a CPU batch.
 """
 
 from __future__ import annotations
@@ -146,17 +149,40 @@ def multiscale_roi_align_canvas(features: Sequence[torch.Tensor], boxes: torch.T
                       offsets[levels], output_size, sampling_ratio)
 
 
+class _PoolMultiscale(torch.autograd.Function):
+    """The batched pooler with a backward for the maps; boxes get none."""
+
+    @staticmethod
+    def forward(ctx, boxes, image_size, output_size, sampling_ratio, *features):
+        from object_detectors_tpu_torch.kernels import roi_align as roi_align_kernel
+
+        ctx.save_for_backward(boxes)
+        ctx.args = (tuple(tuple(f.shape) for f in features), image_size, output_size,
+                    sampling_ratio, features[0].dtype)
+        pool = (roi_align_kernel.multiscale_roi_align_cuda if boxes.is_cuda
+                else roi_align_kernel.multiscale_roi_align_reference)
+        return pool(features, boxes, image_size, output_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from object_detectors_tpu_torch.kernels.roi_align_bwd import (
+            multiscale_roi_align_backward,
+        )
+
+        (boxes,) = ctx.saved_tensors
+        shapes, image_size, output_size, sampling_ratio, dtype = ctx.args
+        grads = multiscale_roi_align_backward(grad, boxes, shapes, image_size, output_size,
+                                              sampling_ratio, dtype)
+        return (None, None, None, None, *grads)
+
+
 def pool_multiscale(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_size,
                     output_size=(7, 7), sampling_ratio: int = 2) -> torch.Tensor:
     """Batched pooler: level maps [B, C, H_l, W_l], boxes [B, N, 4] ->
     [B, N, oh, ow, C] in the maps' dtype. The kernel for CUDA tensors, the
-    plain version (image by image) for CPU tensors."""
-    from object_detectors_tpu_torch.kernels import roi_align as roi_align_kernel
-
-    if boxes.is_cuda:
-        return roi_align_kernel.multiscale_roi_align_cuda(
-            features, boxes, image_size, output_size, sampling_ratio)
-    if boxes.device.type != "cpu":
+    plain version (image by image) for CPU tensors; under autograd the
+    backward of the maps is the backward kernel on the card."""
+    if boxes.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no RoIAlign for device {boxes.device}")
-    return roi_align_kernel.multiscale_roi_align_reference(
-        features, boxes, image_size, output_size, sampling_ratio)
+    return _PoolMultiscale.apply(boxes.detach(), tuple(image_size), tuple(output_size),
+                                 sampling_ratio, *features)

@@ -1,0 +1,133 @@
+"""One train step of a tiny model of each family on the CPU and on the GPU,
+from the same weights, inputs and sampler draws, and how far the two
+updates differ. ``chip_smoke.py`` and the card-only tests run these.
+
+Both devices run with TF32 off. The losses are computed before the
+update: the YOLO ones agree within ``TRAIN_LOSS_RTOL``, the Faster R-CNN
+ones within ``FRCNN_LOSS_RTOL``, because its RoIAlign backward sums with
+atomics. cuDNN and the CPU sum the convolutions in other orders. An
+activation within that noise of a (leaky) ReLU kink then takes another
+derivative on each device. The tiny Darknet's batch norms (18 to 18 432
+values a channel) spread such a flip over a channel. So its f32 update
+holds only as a whole: the difference's norm within
+``YOLO_F32_UPDATE_NORM`` of the update's (1.8 % seen on an H100). In f64
+each tensor holds within ``YOLO_F64_UPDATE_SHARE`` of that tensor's largest
+update (1.3e-7 seen there). Faster R-CNN's frozen batch norms do not spread
+a flip, so each of its f32 tensors holds within ``FRCNN_UPDATE_SHARE``
+(0.4 % seen). A wrong gradient is off by the size of the update itself.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+TRAIN_LOSS_RTOL, FRCNN_LOSS_RTOL = 1e-4, 1e-3
+YOLO_F32_UPDATE_NORM, YOLO_F64_UPDATE_SHARE, FRCNN_UPDATE_SHARE = 0.05, 1e-5, 0.05
+
+
+def update_gap(models: dict, before: dict) -> dict:
+    """The GPU's parameter updates against the CPU's. ``worst_share``: the
+    largest difference in a tensor over that tensor's largest CPU update,
+    the worst tensor's (named by ``at``). ``norm_share``: the norm of all
+    differences over the norm of all updates."""
+    gpu = dict(models["cuda"].named_parameters())
+    worst, at, num, den = 0.0, None, 0.0, 0.0
+    for name, p in models["cpu"].named_parameters():
+        upd = (p.detach() - before[name]).double()
+        diff = (gpu[name].detach().cpu() - before[name]).double() - upd
+        num += float((diff ** 2).sum())
+        den += float((upd ** 2).sum())
+        share = diff.abs().max().item() / max(upd.abs().max().item(), 1e-30)
+        if share > worst:
+            worst, at = share, name
+    return {"worst_share": worst, "at": at, "norm_share": (num / max(den, 1e-300)) ** 0.5}
+
+
+def on_both(make: Callable[[], torch.nn.Module], step: Callable, dtype=torch.float32):
+    """``step(model, device)`` on a fresh ``make()`` on the CPU and on the
+    GPU in ``dtype``, with TF32 off: (models, the parameters before the
+    step, the step's outputs), each keyed by device."""
+    allow = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        models, outs = {}, {}
+        for dev in ("cpu", "cuda"):
+            models[dev] = make().to(dev, dtype)
+            before = {k: p.detach().cpu().clone() for k, p in models[dev].named_parameters()}
+            outs[dev] = step(models[dev], dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    return models, before, outs
+
+
+def yolo_step_on_both(dtype=torch.float32):
+    """A tiny Darknet YOLO (``backbone_layers=(1, 1, 1, 1, 1)``, 4 classes,
+    96 px, batch 2, 6 GT slots) takes one SGD step (lr 1e-3, weight decay
+    5e-4, momentum 0.9) on each device. Returns (models, parameters
+    before, the step's metrics)."""
+    from object_detectors_tpu_torch.models import yolo_criterion as YC
+    from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
+    from object_detectors_tpu_torch.train import optim, trainer
+
+    cfg = YC.YoloLossConfig(num_classes=4, img_size=96)
+    rng = np.random.RandomState(0)
+    images, *gt = [torch.from_numpy(a) for a in (
+        rng.rand(2, 96, 96, 3), (rng.rand(2, 6, 4) * 0.5 + 0.25).astype(np.float32),
+        rng.randint(0, 4, (2, 6)), rng.rand(2, 6) < 0.7)]
+    tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 1e-3, 5e-4, 0.9),
+                              optim.SchedulerConfig())
+
+    def step(model, dev):
+        state = trainer.create_yolo_train_state(model, tx)
+        return trainer.yolo_train_step(state, images.to(dev, dtype), *[t.to(dev) for t in gt],
+                                       cfg, 4)[1]
+
+    return on_both(
+        lambda: init_yolo_(YoloHead(4, backbone_layers=(1, 1, 1, 1, 1), dtype=dtype), seed=1),
+        step, dtype)
+
+
+def frcnn_step_on_both():
+    """A tiny Faster R-CNN (``resnet_layers=(1, 1, 1, 1)``, 5 classes,
+    64 px, batch 2 with one background image) takes one SGD step (lr
+    0.0025, weight decay 1e-4, momentum 0.9) on each device, both samplers
+    on the same seeded uniforms. Returns (models, parameters before, the
+    four losses, and the RoIAlign forward and backward kernels' launches
+    during each device's step)."""
+    from object_detectors_tpu_torch.kernels import roi_align as KR
+    from object_detectors_tpu_torch.kernels import roi_align_bwd as KB
+    from object_detectors_tpu_torch.models import faster_rcnn as F
+    from object_detectors_tpu_torch.models import roi_heads as RH
+    from object_detectors_tpu_torch.models import rpn as RPN
+    from object_detectors_tpu_torch.train import optim, trainer
+
+    cfg = F.FasterRCNNConfig(
+        num_classes=5, rpn=RPN.RPNConfig(pre_nms_top_n_train=32, post_nms_top_n_train=16,
+                                         batch_size_per_image=16),
+        roi=RH.RoIHeadsConfig(num_classes=5, batch_size_per_image=8), resnet_layers=(1, 1, 1, 1))
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+    gt = torch.tensor([[[4.0, 4.0, 24.0, 24.0], [30.0, 30.0, 50.0, 44.0]]] * 2)
+    labels, valid = torch.tensor([[1, 3]] * 2), torch.tensor([[True, True], [False, False]])
+    a_total = 3 * (16 ** 2 + 8 ** 2 + 4 ** 2 + 2 ** 2 + 1)
+    g = torch.Generator().manual_seed(2)
+    draws = {"rpn": (torch.rand(2, a_total, generator=g), torch.rand(2, a_total, generator=g)),
+             "roi": (torch.rand(2, 18, generator=g), torch.rand(2, 18, generator=g))}
+    tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 0.0025, 1e-4, 0.9),
+                              optim.SchedulerConfig())
+    launches = {}
+
+    def step(model, dev):
+        state = trainer.create_frcnn_train_state(model, tx)
+        start = KR.launches, KB.launches
+        out = trainer.frcnn_train_step(
+            state, x.to(dev), gt.to(dev), labels.to(dev), valid.to(dev),
+            uniforms={k: tuple(t.to(dev) for t in v) for k, v in draws.items()})[2]
+        launches[dev] = KR.launches - start[0], KB.launches - start[1]
+        return out
+
+    models, before, losses = on_both(lambda: F.init_frcnn_(F.FasterRCNN(cfg), seed=3), step)
+    return models, before, losses, launches

@@ -143,9 +143,8 @@ def test_main_prints_the_reference_line_without_vs_baseline(monkeypatch, capsys,
                      dict(ROW_FAKES, run_train_step=lambda: (4.0, 0.4),
                           run_serving=lambda: 5.0))
     out = _main_line(monkeypatch, capsys, B, argv,
-                     dict(ROW_FAKES, card_line=lambda: CARD,
+                     dict(ROW_FAKES, card_line=lambda: CARD, run_train_step=lambda: (4.0, 0.4),
                           run_serving=lambda: (5.0, [], None)))
-    ref["configs"].pop("yolo_train416", None)  # waits for the training slice
     assert set(out) == set(ref) - {"vs_baseline"} | {"card"} and out["card"] == CARD
     assert list(out["configs"]) == list(ref["configs"])
     for name, row in ref["configs"].items():
@@ -163,5 +162,30 @@ def test_a_failing_row_raises(monkeypatch, capsys):
 
     with pytest.raises(RuntimeError, match="serving broke"):
         _main_line(monkeypatch, capsys, B, [],
-                   dict(ROW_FAKES, card_line=lambda: CARD, run_serving=broken))
+                   dict(ROW_FAKES, card_line=lambda: CARD, run_train_step=lambda: (4.0, 0.4),
+                        run_serving=broken))
     assert capsys.readouterr().out == ""
+
+
+def test_train_row_builds_the_reference_batches():
+    """yolo_train416's batches are the root bench's run_train_step draws."""
+    rng = np.random.RandomState(3)
+    for got in B.train_batches(2, 32):
+        want = dict(images=rng.rand(2, 32, 32, 3).astype(np.float32),
+                    gt_boxes=rng.rand(2, 32, 4).astype(np.float32) * 0.5 + 0.25,
+                    gt_labels=rng.randint(0, 80, (2, 32)), gt_valid=rng.rand(2, 32) < 0.5)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v)
+
+
+def test_train_row_on_cpu():
+    """The timed train steps of a tiny YOLO at 64 px: readings present, the
+    model's parameters moved by the steps."""
+    from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
+
+    model = init_yolo_(YoloHead(80, backbone_layers=(1, 1, 1, 1, 1), dtype=torch.bfloat16))
+    before = model.backbone.stem.conv.weight.detach().clone()
+    t = B.train_step_timing(bs=2, img_size=64, warmup=1, iters=2, device="cpu", model=model)
+    assert t["imgs_per_s"] > 0 and t["ms_per_step"] > 0 and t["max_memory_gb"] is None
+    assert np.isfinite(t["loss"]) and t["mfu"] > 0
+    assert not torch.equal(before, model.backbone.stem.conv.weight)

@@ -309,9 +309,19 @@ def test_frcnn_stages_are_reported_in_order(tiny):
 
 
 def test_frcnn_training_is_not_ported(tiny):
+    """Training without targets is refused; with them it returns the four
+    losses (held against JAX in test_torch_frcnn_train.py)."""
     *_, port, x = tiny
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         port(torch.from_numpy(x), train=True)
+    gt = torch.tensor([[[4.0, 4.0, 40.0, 44.0]]] * 2)
+    losses = port.train()(torch.from_numpy(x), gt, torch.ones(2, 1, dtype=torch.long),
+                          torch.ones(2, 1, dtype=torch.bool), train=True,
+                          generator=torch.Generator().manual_seed(0))
+    port.eval()
+    assert sorted(losses) == ["loss_box_reg", "loss_classifier", "loss_objectness",
+                              "loss_rpn_box_reg"]
+    assert all(torch.isfinite(v) for v in losses.values())
 
 
 def test_uint8_pipeline_matches_jax(tiny):

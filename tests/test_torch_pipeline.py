@@ -87,7 +87,7 @@ def test_cuda_pipeline_without_gpu_raises(monkeypatch):
         PL.build_pipeline_uint8(backbone_layers=LAYERS)
 
 
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|object_detectors_tpu)\b",
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|msgpack|object_detectors_tpu)\b",
                        re.MULTILINE)
 
 

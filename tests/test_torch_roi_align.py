@@ -1,7 +1,9 @@
 """The port's RoIAlign (object_detectors_tpu_torch/ops/roi_align.py and the
 plain version of kernels/roi_align.py) against the JAX poolers: the XLA
 roi_align and canvas pooler, and the Pallas hybrid pooler in its
-bands_grouped and tiled modes, run in interpret mode."""
+bands_grouped and tiled modes, run in interpret mode; the backward
+(kernels/roi_align_bwd.py's plain version, pool_multiscale under autograd)
+against jax.grad of the canvas and flat poolers."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 from object_detectors_tpu.kernels.roi_align_pallas import multiscale_roi_align_hybrid
 from object_detectors_tpu.ops import roi_align as jax_ra
 from object_detectors_tpu_torch.kernels import roi_align as K
+from object_detectors_tpu_torch.kernels import roi_align_bwd as KB
 from object_detectors_tpu_torch.ops import roi_align as R
 from test_roi_align_pallas import _setup
 
@@ -205,3 +208,94 @@ def test_staged_rois_needs_16_byte_channel_runs_on_aligned_maps(dtype, c, offset
     assert foot[0, :2].tolist() == [K.STAGE_PIXELS, K.STAGE_PIXELS // 2]
     assert torch.equal(staged, (foot <= K.STAGE_PIXELS) & vectors)
     assert bool(staged.any()) == vectors and not bool(staged.all())
+
+
+# -- the backward: kernels/roi_align_bwd.py's plain version and the autograd
+# of ops/roi_align.py:pool_multiscale, against jax.grad of the JAX poolers.
+# The same products in other summation orders: rtol 1e-4, atol 1e-5.
+
+def _jax_pool_grad(pool, feats, boxes, cot, size):
+    """jax.grad of the batched JAX pooler ``pool`` for the cotangent ``cot``
+    -> NCHW numpy maps."""
+    def f(fs):
+        out = jax.vmap(lambda f_, b_: pool(f_, b_, (size, size), (7, 7)))(fs, jnp.asarray(boxes))
+        return jnp.sum(out * jnp.asarray(cot))
+    return [np.asarray(g).transpose(0, 3, 1, 2) for g in jax.grad(f)(tuple(feats))]
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_backward_matches_jax_grad_of_the_canvas_pooler(seed):
+    feats, boxes = _setup(seed=seed, n=30)  # P2-P5 of 256 px: at least 8 px a level
+    boxes[0, :4] = EXTREME
+    boxes[1, :2] = [[-200, -200, 300, 300], [-300, -250, 256, 256]]  # P5's
+    cot = np.random.RandomState(seed).randn(*boxes.shape[:2], 7, 7, 8).astype(np.float32)
+    ref = _jax_pool_grad(jax_ra.multiscale_roi_align_canvas, feats, boxes, cot, SIZE)
+    shapes = [tuple(m.shape) for m in nchw(feats)]
+    out = KB.multiscale_roi_align_backward_reference(
+        torch.from_numpy(cot), torch.from_numpy(boxes), shapes, (SIZE, SIZE))
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.float32 and o.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-4, atol=1e-5)
+    assert all(np.abs(r).max() > 0 for r in ref)  # every level took RoIs
+
+
+def test_backward_on_one_pixel_levels_matches_jax_grad_of_the_flat_pooler():
+    """At a 32 px image P5 is 1x1, where the JAX canvas pooler reads the next
+    rows of its canvas (test_one_pixel_level_follows_the_flat_pooler); the
+    backward follows the flat pooler there too."""
+    rng = np.random.RandomState(1)
+    feats = [jnp.asarray(rng.randn(2, 32 // s, 32 // s, 4).astype(np.float32))
+             for s in (4, 8, 16, 32)]
+    boxes = np.asarray([[[0, 0, 500, 500], [-10, -10, 470, 460], [2, 3, 20, 30]]] * 2,
+                       np.float32)
+    cot = rng.randn(2, 3, 7, 7, 4).astype(np.float32)
+    ref = _jax_pool_grad(jax_ra.multiscale_roi_align_flat, feats, boxes, cot, 32)
+    canvas = _jax_pool_grad(jax_ra.multiscale_roi_align_canvas, feats, boxes, cot, 32)
+    out = KB.multiscale_roi_align_backward_reference(
+        torch.from_numpy(cot), torch.from_numpy(boxes), [tuple(m.shape) for m in nchw(feats)],
+        (32, 32))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-4, atol=1e-5)
+    assert max(np.abs(c - r).max() for c, r in zip(canvas, ref)) > 0.1
+
+
+def test_pool_multiscale_autograd_is_the_plain_backward():
+    """On the CPU ``pool_multiscale`` under autograd runs the plain pooler
+    forward and its autograd backward, f32 accumulation rounded to the maps'
+    dtype; the boxes get no gradient."""
+    feats, boxes = _setup(seed=6, n=12)
+    cot = torch.from_numpy(np.random.RandomState(6).randn(2, 12, 7, 7, 8).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        maps = [m.to(dtype).requires_grad_() for m in nchw(feats)]
+        tb = torch.from_numpy(boxes).requires_grad_()
+        out = R.pool_multiscale(maps, tb, (SIZE, SIZE))
+        assert out.dtype == dtype and out.requires_grad
+        torch.testing.assert_close(out, K.multiscale_roi_align_reference(
+            [m.detach() for m in maps], tb.detach(), (SIZE, SIZE)), rtol=0, atol=0)
+        (out.float() * cot).sum().backward()
+        ref = KB.multiscale_roi_align_backward_reference(
+            cot.to(dtype), tb.detach(), [tuple(m.shape) for m in maps], (SIZE, SIZE),
+            dtype=dtype)
+        for m, r in zip(maps, ref):
+            assert m.grad.dtype == dtype
+            torch.testing.assert_close(m.grad, r, rtol=0, atol=0)
+        assert tb.grad is None
+    with torch.no_grad():  # no gradient to record
+        assert not R.pool_multiscale(maps, tb, (SIZE, SIZE)).requires_grad
+
+
+def test_backward_cuda_wrapper_checks_its_inputs():
+    feats, boxes = _setup(seed=2, n=5)
+    shapes = [tuple(m.shape) for m in nchw(feats)]
+    cot = torch.zeros(2, 5, 7, 7, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        KB.multiscale_roi_align_backward_cuda(cot, torch.from_numpy(boxes), shapes, (SIZE, SIZE))
+    with pytest.raises(ValueError, match="cotangent"):
+        KB.multiscale_roi_align_backward_cuda(cot[:, :4], torch.from_numpy(boxes), shapes,
+                                              (SIZE, SIZE))
+    with pytest.raises(ValueError, match="level maps"):
+        KB.multiscale_roi_align_backward_cuda(cot, torch.from_numpy(boxes), shapes * 2,
+                                              (SIZE, SIZE))
+    with pytest.raises(TypeError):
+        KB.multiscale_roi_align_backward_cuda(cot.half(), torch.from_numpy(boxes), shapes,
+                                              (SIZE, SIZE))
