@@ -100,10 +100,16 @@ Phases, each printed as JSON lines:
 19. kernel (roi_align_backward): the RoIAlign backward kernel against its
    plain version (autograd of the plain pooler) at the Faster R-CNN
    training shape, a cotangent [2, 512, 7, 7, 256] on P2-P5 of an 800²
-   image, and at an odd one, in f32 (within ROI_F32_*: the f32 atomics add
-   in a changing order) and bf16 (within one bf16 ulp of max(|plain|, 1));
-   its time beside the plain version's and the bound from the bytes it must
-   move and the operations (the atomics' adds among them) its samples need.
+   image, at an odd one and at a 14x14 one, in f32 (within ROI_F32_*: the
+   reductions add in a changing order) and bf16 (within one bf16 ulp of
+   max(|plain|, 1)), each RoI's route (level; staged or direct) against
+   ``backward_routes``; at the training shape its time (the wrapper, the
+   zeroing alone, and the device time of the zeroing, the kernel and the
+   rounding from a trace) beside the plain version's and the bound from
+   the bytes it must move and the operations its samples need; its
+   kernel_time line adds the reductions it issues beside a scatter's
+   corner updates, both counted on the host, which the kernels line
+   leaves out.
 20. yolo_train: the port bench's yolo_train416 row (batch 128, 416², bf16
    activations): images/s, ms a step, mfu, peak memory, a finite loss;
    the tiny Darknet step of ``train/tiny_steps.py`` at 96 px (TF32 off) on
@@ -117,7 +123,8 @@ Phases, each printed as JSON lines:
    step with the three wrappers watched, each kernel then held against its
    plain version at the inputs that step gave it (the RPN filter's 2 x 5
    groups at K 2000 identical, the f32 RoIAlign forward and backward at
-   512 RoIs an image within ROI_F32_*), NMS timed there; the tiny Faster
+   512 RoIs an image within ROI_F32_*), NMS timed there and the backward
+   (f32 and bf16) at the step's own cotangent and RoIs; the tiny Faster
    R-CNN step of ``train/tiny_steps.py`` at 64 px on the GPU against the
    CPU with the same draws.
 
@@ -1243,12 +1250,12 @@ def phase_yolo_neck(PL, u8):
         torch.backends.cudnn.allow_tf32 = allow
 
 
-def roi_backward_case(seed: int, b: int, n: int, size: int, c: int, dtype):
+def roi_backward_case(seed: int, b: int, n: int, size: int, c: int, dtype, out=(7, 7)):
     """Seeded R50-FPN level shapes (P2-P5 of a ``size``² image), RoIs and an
-    output cotangent [b, n, 7, 7, c] in ``dtype`` on the card."""
+    output cotangent [b, n, *out, c] in ``dtype`` on the card."""
     shapes = [(b, c, size // s, size // s) for s in (4, 8, 16, 32)]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    cot = torch.randn(b, n, 7, 7, c, generator=g, device="cuda").to(dtype)
+    cot = torch.randn(b, n, *out, c, generator=g, device="cuda").to(dtype)
     return shapes, random_rois(seed, b, n, size), cot
 
 
@@ -1256,7 +1263,8 @@ def roi_backward_work(shapes, boxes, cot, size, s=2):
     """(bytes, operations, atomics) of one backward on these inputs: the
     cotangent and boxes read once and the level maps' cotangents written
     once; for every sample inside its map and channel, four weights, four
-    products and four atomic adds, and a divide per bin and channel."""
+    products and four atomic adds (the corner updates), and a divide per bin
+    and channel."""
     c = cot.shape[-1]
     inside = int(inside_samples([sh[2:] for sh in shapes], boxes, size, cot.shape[2:4],
                                 s).sum())
@@ -1265,17 +1273,27 @@ def roi_backward_work(shapes, boxes, cot, size, s=2):
     return moved, inside * c * 12 + cot.numel(), inside * c * 4
 
 
-def check_roi_backward(KB, case, shapes, boxes, cot, size):
+def check_roi_backward(KR, KB, case, shapes, boxes, cot, size):
     """Kernel vs plain backward on one input: f32 within ROI_F32_*, bf16
-    within one bf16 ulp of max(|plain|, 1). The atomics' change of order
-    errs in proportion to the values summed, so where the cotangent and the
-    result lie below 1 (a training step's do, by orders) the absolute
-    tolerance shrinks with the larger of their largest values. Returns the
-    max abs error."""
+    within one bf16 ulp of max(|plain|, 1); each RoI's route (level; staged
+    and summed a footprint pixel at a time, or its samples' corners reduced
+    directly) against ``assign_fpn_levels`` and the rule ``backward_routes``
+    states. The reductions' change of order errs in proportion to the
+    values summed, so where the cotangent and the result lie below 1 (a
+    training step's do, by orders) the absolute tolerance shrinks with the
+    larger of their largest values. Returns the max abs error."""
+    from object_detectors_tpu_torch.ops.roi_align import assign_fpn_levels
+
     dtype = cot.dtype
-    got = KB.multiscale_roi_align_backward_cuda(cot, boxes, shapes, (size, size), dtype=dtype)
+    out_size = tuple(cot.shape[2:4])
+    route = torch.empty(boxes.shape[:2], dtype=torch.uint8, device="cuda")
+    got = KB.multiscale_roi_align_backward_cuda(cot, boxes, shapes, (size, size), out_size,
+                                                dtype=dtype, route=route)
     ref = KB.multiscale_roi_align_backward_reference(cot, boxes, shapes, (size, size),
-                                                     dtype=dtype)
+                                                     out_size, dtype=dtype)
+    rule, foot = KR.backward_routes(shapes, boxes, (size, size), out_size)
+    levels = torch.equal((route // 2).int(), assign_fpn_levels(boxes, len(shapes)))
+    staged = (route % 2).bool()
     torch.cuda.synchronize()
     err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
     ulp_ok = all(bool(((g.float() - r.float()).abs()
@@ -1286,7 +1304,10 @@ def check_roi_backward(KB, case, shapes, boxes, cot, size):
          max_abs_err=err, max_abs_ref=max(r.float().abs().max().item() for r in ref),
          max_abs_cotangent=cot.float().abs().max().item(),
          within_one_bf16_ulp_of_max_plain_1=ulp_ok,
-         channels_last=all(g.is_contiguous(memory_format=torch.channels_last) for g in got))
+         channels_last=all(g.is_contiguous(memory_format=torch.channels_last) for g in got),
+         staged_rois=int(staged.sum()), direct_rois=int((~staged).sum()),
+         footprint_max=int(foot.max()) if foot.numel() else 0,
+         levels_as_assign_fpn_levels=levels, route_as_the_rule_says=torch.equal(staged, rule))
     scale = min(1.0, max([cot.float().abs().max().item()]
                          + [r.float().abs().max().item() for r in ref]))
     for g, r in zip(got, ref):
@@ -1295,33 +1316,79 @@ def check_roi_backward(KB, case, shapes, boxes, cot, size):
             torch.testing.assert_close(g, r, rtol=ROI_F32_RTOL, atol=ROI_F32_ATOL * scale)
     check(dtype == torch.float32 or ulp_ok,
           f"bf16 RoIAlign backward is not within one ulp of max(|plain|, 1) ({case})")
+    check(levels, f"RoIAlign backward took other levels than assign_fpn_levels ({case})")
+    check(torch.equal(staged, rule), f"RoIAlign backward took other routes than the rule "
+                                     f"says ({case})")
     return err
 
 
-def phase_roi_align_backward_kernel(KB):
+def roi_backward_time(KR, KB, shapes, boxes, cot, size, iters=20):
+    """One backward timed at these inputs (ms): the wrapper with CUDA events
+    (the f32 buffer's zeroing, the kernel and, in bf16, its rounding pass),
+    the zeroing alone, and from a torch.profiler trace of the wrapper the
+    device time of each part: the zeroing, the kernel (``kernel_only_ms``)
+    and the rounding. With the reductions the kernel issues
+    (``backward_reductions``, counted on the host) beside the corner
+    updates of a scatter, and its staged and direct RoIs as the kernel's
+    route bytes give them."""
+    dtype = cot.dtype
+    total = sum(int(np.prod(sh)) for sh in shapes)
+    out_size = tuple(cot.shape[2:4])
+    args = (cot, boxes, shapes, (size, size), out_size, 2)
+    t = dict(ms=cuda_ms(lambda: KB.multiscale_roi_align_backward_cuda(*args, dtype=dtype),
+                        iters),
+             zeroing_ms=cuda_ms(lambda: torch.zeros(total, dtype=torch.float32,
+                                                    device="cuda"), iters))
+    parts = {"roi_align_backward_kernel": "kernel", "round_to_bf16_kernel": "rounding"}
+    device = {"kernel": 0.0, "rounding": 0.0, "zeroing": 0.0}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            KB.multiscale_roi_align_backward_cuda(*args, dtype=dtype)
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            part = next((v for key, v in parts.items() if key in e.name), "zeroing")
+            device[part] += e.device_time / 1e3 / iters
+    check(device["kernel"] > 0, f"the RoIAlign backward trace misses its kernel: {device}")
+    route = torch.empty(boxes.shape[:2], dtype=torch.uint8, device="cuda")
+    KB.multiscale_roi_align_backward_cuda(*args, dtype=dtype, route=route)
+    staged = (route % 2).bool()
+    moved, ops, atomics = roi_backward_work(shapes, boxes, cot, size)
+    bound, bound_by = time_bound(moved, ops)
+    return dict(t, device_ms=device, kernel_only_ms=device["kernel"], bound_ms=bound,
+                bound_by=bound_by, bytes=moved, operations=ops, atomics=atomics,
+                global_reductions=KR.backward_reductions(shapes, boxes, (size, size), out_size),
+                staged_rois=int(staged.sum()), direct_rois=int((~staged).sum()))
+
+
+def phase_roi_align_backward_kernel(KR, KB):
     """The backward kernel against its plain version (f32 and bf16) at the
     Faster R-CNN training shape, [2, 512, 7, 7, 256] on P2-P5 of an 800²
-    image, and an odd one; then timed at the training shape in f32, the
-    dtype Faster R-CNN trains in, and in bf16."""
+    image, at an odd one and at a 14x14 one; then timed at the training
+    shape in f32, the dtype Faster R-CNN trains in, and in bf16."""
     worst, timing = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
         cases = {"Faster R-CNN training shape": (roi_backward_case(0, 2, 512, 800, 256, dtype),
                                                  800),
                  "odd: 3 x 37 RoIs, C=20, 224²": (roi_backward_case(1, 3, 37, 224, 20, dtype),
-                                                  224)}
+                                                  224),
+                 "14x14: 2 x 64 RoIs, C=256, 800²": (
+                     roi_backward_case(2, 2, 64, 800, 256, dtype, (14, 14)), 800)}
         for case, ((shapes, boxes, cot), size) in cases.items():
-            worst = max(worst, check_roi_backward(KB, case, shapes, boxes, cot, size))
+            worst = max(worst, check_roi_backward(KR, KB, case, shapes, boxes, cot, size))
         shapes, boxes, cot = cases["Faster R-CNN training shape"][0]
-        ms = cuda_ms(lambda: KB.multiscale_roi_align_backward_cuda(cot, boxes, shapes,
-                                                                   (800, 800), dtype=dtype), 20)
+        t = roi_backward_time(KR, KB, shapes, boxes, cot, 800)
         plain_ms = cuda_ms(lambda: KB.multiscale_roi_align_backward_reference(
             cot, boxes, shapes, (800, 800), dtype=dtype), 2)
-        moved, ops, atomics = roi_backward_work(shapes, boxes, cot, 800)
-        bound, bound_by = time_bound(moved, ops)
-        timing[str(dtype)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        timing[str(dtype)] = dict(plain_ms=plain_ms, **{
+            key: t[key] for key in ("ms", "bound_ms", "bound_by", "zeroing_ms",
+                                    "kernel_only_ms", "device_ms", "staged_rois",
+                                    "direct_rois")})
         emit(phase="kernel_time", name="roi_align_backward", dtype=str(dtype),
-             cotangent_shape=list(cot.shape), bytes=moved, operations=ops, atomics=atomics,
-             atomics_per_s=atomics / (ms * 1e-3), library_ms=None, **timing[str(dtype)])
+             case="synthetic RoIs (random_rois)", cotangent_shape=list(cot.shape),
+             reductions_per_s=t["global_reductions"] / (t["kernel_only_ms"] * 1e-3),
+             library_ms=None, plain_ms=plain_ms, **t)
     return worst, timing
 
 
@@ -1378,7 +1445,8 @@ def check_frcnn_train_kernels(KR, KB, KN, step):
     version at the inputs that step gave it: the RPN filter's NMS (B x 5
     groups of up to 2000, K 2000, IoU 0.7) identical, the RoIAlign forward
     (f32 maps, 512 RoIs an image) within ROI_F32_*, its backward within
-    ROI_F32_* too. Returns the NMS kernel's timing at its call's inputs."""
+    ROI_F32_* too. Returns the NMS kernel's timing at its call's inputs and
+    the backward's (f32 and bf16) at the step's own cotangent and RoIs."""
     with (watched(KN, "greedy_nms_cuda") as nms, watched(KR, "multiscale_roi_align_cuda") as fwd,
           watched(KB, "multiscale_roi_align_backward_cuda") as bwd):
         step()
@@ -1399,9 +1467,15 @@ def check_frcnn_train_kernels(KR, KB, KN, step):
     check(bout == (7, 7) and bratio == 2 and dtype == cot.dtype,
           f"frcnn_train800's RoIAlign backward at {bout}, ratio {bratio}, {dtype}")
     check(torch.equal(bboxes, boxes), "the RoIAlign backward took other boxes than its forward")
-    check_roi_backward(KB, "frcnn_train800, a step's own cotangent and RoIs", shapes, bboxes,
-                       cot, bsize[0])
-    return t
+    check_roi_backward(KR, KB, "frcnn_train800, a step's own cotangent and RoIs", shapes,
+                       bboxes, cot, bsize[0])
+    own = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        own[str(dtype)] = roi_backward_time(KR, KB, shapes, bboxes, cot.to(dtype), bsize[0])
+        emit(phase="kernel_time", name="roi_align_backward", dtype=str(dtype),
+             case="frcnn_train800, a step's own cotangent and RoIs",
+             cotangent_shape=list(cot.shape), **own[str(dtype)])
+    return t, own
 
 
 def phase_frcnn_train(KR, KB, KN):
@@ -1444,7 +1518,7 @@ def phase_frcnn_train(KR, KB, KN):
     for name in ("roi_align", "roi_align_bwd", "nms"):
         check(launches[name] == iters, f"frcnn_train800 launched the {name} kernel "
                                        f"{launches[name]} times in {iters} steps")
-    nms_time = check_frcnn_train_kernels(
+    nms_time, bwd_own = check_frcnn_train_kernels(
         KR, KB, KN, lambda: trainer.frcnn_train_step(state, *batches[iters % 3], generator=gen))
 
     models, before, tiny, tiny_launches = TS.frcnn_step_on_both()
@@ -1456,7 +1530,7 @@ def phase_frcnn_train(KR, KB, KN):
           f"the tiny Faster R-CNN step's RoIAlign launches: {tiny_launches}")
     check_update_gap(TS, "frcnn_train", "tiny Faster R-CNN 64 px", models, before,
                      worst_share=TS.FRCNN_UPDATE_SHARE)
-    return dict(ms_per_step=dt * 1e3, launches=launches, nms=nms_time)
+    return dict(ms_per_step=dt * 1e3, launches=launches, nms=nms_time, roi_align_bwd=bwd_own)
 
 
 def main() -> int:
@@ -1523,7 +1597,7 @@ def main() -> int:
     retina_nms = phase_retinanet_post(RN, KN, anchors)
     phase_retinanet_consistency(PL, P, retina_batches[0][:1])
 
-    bwd_err, bwd_timing = phase_roi_align_backward_kernel(KB)
+    bwd_err, bwd_timing = phase_roi_align_backward_kernel(KR, KB)
     yolo_train = phase_yolo_train(B)
     frcnn_train = phase_frcnn_train(KR, KB, KN)
 
@@ -1597,6 +1671,10 @@ def main() -> int:
         "max_abs_err": bwd_err,
         **bwd_timing["torch.float32"],  # Faster R-CNN trains in f32
         "bf16": bwd_timing["torch.bfloat16"],
+        "frcnn_train800_own_inputs": {
+            dtype: {key: t[key] for key in ("ms", "zeroing_ms", "kernel_only_ms", "device_ms",
+                                            "bound_ms", "staged_rois", "direct_rois")}
+            for dtype, t in frcnn_train["roi_align_bwd"].items()},
         "library_ms": None,  # no single PyTorch call computes this function
     }]
     print(card, flush=True)

@@ -11,7 +11,8 @@ plain version, ``ops/roi_align.py:multiscale_roi_align_canvas`` image by
 image, which takes each box's level from ``assign_fpn_levels``; the kernel
 computes the same level in the same f32 operations. ``staged_rois``
 repeats on the host the rule by which the kernel stages a RoI's footprint
-in shared memory.
+in shared memory; ``backward_routes`` the rule by which the backward kernel
+(``kernels/roi_align_bwd.py``) sends a RoI's pixel sums to L2.
 """
 
 from __future__ import annotations
@@ -69,12 +70,23 @@ def staging_window(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_
                    output_size=(7, 7), sampling_ratio: int = 2):
     """The footprint of each RoI as the kernel stages it: the distinct rows
     and columns of its level map that the corners of its samples inside
-    [-1, H] x [-1, W] touch. Level maps [B, C, H_l, W_l], boxes [B, N, 4] ->
+    [-1, H] x [-1, W] touch. Level maps [B, C, H_l, W_l] (only their
+    shapes are read), boxes [B, N, 4] ->
     (rows [B, N, 2 oh s], cols [B, N, 2 ow s]) int64, each RoI's indices
     ascending, padded with -1. The kernel stages a RoI whose rows x columns
     are at most ``STAGE_PIXELS`` and reads the corners of the others
     directly."""
     b, n = boxes.shape[:2]
+    (oy, y0, y1), (ox, x0, x1) = _taps(features, boxes, image_size, output_size,
+                                       sampling_ratio)
+    oh, ow = output_size
+    return (_distinct(oy, y0, y1).view(b, n, 2 * oh * sampling_ratio),
+            _distinct(ox, x0, x1).view(b, n, 2 * ow * sampling_ratio))
+
+
+def _taps(features, boxes, image_size, output_size, sampling_ratio):
+    """Each RoI's samples along y and x on its level: (outside, floor,
+    neighbour) [B * N, out, s] each."""
     flat = boxes.reshape(-1, 4)
     sizes = [f.shape[-2:] for f in features]
     lv = assign_fpn_levels(flat, len(features)).long()
@@ -86,7 +98,7 @@ def staging_window(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_
         flat, per_roi([_infer_scale(hw, image_size) for hw in sizes]),
         per_roi([h for h, _ in sizes]), per_roi([w for _, w in sizes]), output_size,
         sampling_ratio)
-    return _distinct(oy, y0, y1).view(b, n, -1), _distinct(ox, x0, x1).view(b, n, -1)
+    return (oy, y0, y1), (ox, x0, x1)
 
 
 def staged_rois(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_size,
@@ -103,6 +115,66 @@ def staged_rois(features: Sequence[torch.Tensor], boxes: torch.Tensor, image_siz
     runs = 16 // features[0].element_size()
     vectors = features[0].shape[1] % runs == 0 and all(f.data_ptr() % 16 == 0 for f in features)
     return (foot <= STAGE_PIXELS) & vectors, foot
+
+
+# The backward kernel's constants (csrc/roi_align.cu; change both together):
+# channels a block takes at most, the bytes its staged cotangent may take,
+# and the share of its samples' corners a footprint must reach for the
+# direct route (1 / BWD_DIRECT)
+BWD_SLICE, BWD_STAGE_BYTES, BWD_DIRECT = 64, 64 * 1024, 2
+
+
+def backward_slice(c: int, output_size=(7, 7), sampling_ratio: int = 2) -> int:
+    """Channels a backward block takes, as the kernel's ``backward_slice``:
+    BWD_SLICE, fewer where their staged cotangent would exceed
+    BWD_STAGE_BYTES or a block's items (up to 4 s^2 oh ow footprint pixels
+    or sample corners, each with the slice's channels) would reach 2^22,
+    all of them where there are fewer; 0 where not even 4 fit (the kernel
+    then takes no launch)."""
+    oh, ow = output_size
+    bins = oh * ow
+    fit = min(BWD_STAGE_BYTES // (bins * 4),
+              (2 ** 22 - 1) // (4 * bins * sampling_ratio ** 2)) // 4 * 4
+    return min(fit, BWD_SLICE) if fit < c else min(c, BWD_SLICE)
+
+
+def backward_routes(level_shapes: Sequence, boxes: torch.Tensor, image_size,
+                    output_size=(7, 7), sampling_ratio: int = 2):
+    """How the backward kernel sends each RoI's sums to its level's f32
+    cotangent: (staged [B, N] bool, footprint pixels [B, N] int64). A RoI
+    whose footprint (the pixels ``staging_window`` lists, any number) is
+    under 1 / BWD_DIRECT of its samples' corners, 4 s^2 oh ow, is staged:
+    its cotangent goes to shared memory and each footprint pixel is summed
+    in registers before one reduction a vector of channels. The others
+    take the direct route: one reduction a corner of every sample inside
+    the map. ``level_shapes``: [B, C, H_l, W_l] each."""
+    maps = [torch.empty(tuple(sh), device="meta") for sh in level_shapes]
+    rows, cols = staging_window(maps, boxes, image_size, output_size, sampling_ratio)
+    foot = (rows >= 0).sum(-1) * (cols >= 0).sum(-1)
+    oh, ow = output_size
+    return foot * BWD_DIRECT < 4 * sampling_ratio ** 2 * oh * ow, foot
+
+
+def backward_reductions(level_shapes: Sequence, boxes: torch.Tensor, image_size,
+                        output_size=(7, 7), sampling_ratio: int = 2) -> int:
+    """The global reductions one backward launch issues, each of a vector of
+    4 channels where the channels come in runs of 4 (float4) and of 1
+    otherwise. A block takes one RoI and a slice of channels. Staged: one
+    a footprint pixel and vector. Direct: one a vector and corner of every
+    sample inside the map."""
+    staged, foot = backward_routes(level_shapes, boxes, image_size, output_size,
+                                   sampling_ratio)
+    maps = [torch.empty(tuple(sh), device="meta") for sh in level_shapes]
+    (oy, _, _), (ox, _, _) = _taps(maps, boxes, image_size, output_size, sampling_ratio)
+    inside = ((~oy).flatten(1).sum(1) * (~ox).flatten(1).sum(1)).view(foot.shape)
+    c = level_shapes[0][1]
+    vec = 4 if c % 4 == 0 else 1
+    width = backward_slice(c, output_size, sampling_ratio)
+    total = 0
+    for lo in range(0, c, width):
+        vectors = min(width, c - lo) // vec
+        total += int(torch.where(staged, foot, 4 * inside).sum()) * vectors
+    return total
 
 
 def _check(features: Sequence[torch.Tensor], boxes: torch.Tensor, sampling_ratio) -> None:

@@ -24,16 +24,14 @@ from object_detectors_tpu_torch.models.common import conv2d
 
 
 def upsample_nearest_to(x: torch.Tensor, size) -> torch.Tensor:
-    """Nearest-neighbour resize of NCHW ``x`` to ``size`` = (H, W), an exact
-    integer multiple of its own; other factors are not ported."""
-    h, w = x.shape[-2:]
-    th, tw = size
-    if (th, tw) == (h, w):
+    """Nearest-neighbour resize of NCHW ``x`` to ``size`` = (H, W), as the
+    JAX ``_upsample_nearest_to``: at any factor, source index floor((i +
+    0.5) * in / out), which ``jax.image.resize(..., "nearest")`` and
+    ``mode="nearest-exact"`` share (``mode="nearest"`` takes floor(i * in /
+    out) and differs at factors that are not integers)."""
+    if tuple(size) == tuple(x.shape[-2:]):
         return x
-    if th % h or tw % w:
-        raise ValueError(f"FPN upsample from {(h, w)} to {(th, tw)} is not by an "
-                         "integer factor; only integer factors are ported")
-    return F.interpolate(x, size=(th, tw), mode="nearest")
+    return F.interpolate(x, size=tuple(size), mode="nearest-exact")
 
 
 class FeaturePyramidNetwork(nn.Module):

@@ -4,11 +4,12 @@ RoIHeads semantics).
 
 ``TwoMLPHead`` flattens the pooled [B, N, oh, ow, C] features in (y, x, c)
 order, the JAX layout, so its ``fc6`` takes the Flax kernel as a plain
-transpose. ``postprocess_detections`` covers the ``ce`` classifier: softmax
-of the (tf-idf scaled) logits, background dropped, score threshold, exact
-top-``pre_nms_candidates`` (proposal, class) pairs, decode, clip, small-box
-mask, class-aware NMS, ``detections_per_img`` kept; the postprocess of the
-other loss types is not ported.
+transpose. ``postprocess_detections`` scores the (tf-idf scaled) logits as the
+classifier's ``loss_type`` was trained (softmax for ``ce``, the Gompertz
+link for ``gombit`` and ``gombit_fl``, a sigmoid for ``bce`` and
+``focal_loss``), drops the background, thresholds, takes the exact
+top-``pre_nms_candidates`` (proposal, class) pairs, decodes, clips, masks
+small boxes, runs class-aware NMS and keeps ``detections_per_img``.
 
 Training: ``select_training_samples`` appends the GT boxes to the
 proposals, matches them at 0.5 / 0.5 without the low-quality recovery
@@ -194,10 +195,16 @@ def postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Ten
     """class_logits [B, P, C], box_regression [B, P, 4C], proposals [B, P, 4],
     prop_valid [B, P] -> (boxes [B, D, 4], scores [B, D], labels [B, D]
     1-based, -1 where not valid; valid [B, D])."""
-    if cfg.loss_type != "ce":
-        raise ValueError(f"loss_type {cfg.loss_type!r} is not ported; only 'ce' is")
     b, p, c = class_logits.shape
-    scores = torch.softmax(class_logits * tfidf_post, -1)
+    scaled = class_logits * tfidf_post
+    if cfg.loss_type == "ce":
+        scores = torch.softmax(scaled, -1)
+    elif cfg.loss_type in ("gombit", "gombit_fl"):
+        scores = _gombit_prob(scaled)
+    elif cfg.loss_type in ("bce", "focal_loss"):
+        scores = torch.sigmoid(scaled)
+    else:
+        raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
     # (proposal, class) pairs without the background column; the NMS
     # candidates are selected first and only their boxes decoded
     fscores = scores[..., 1:].reshape(b, -1)

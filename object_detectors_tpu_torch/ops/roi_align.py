@@ -21,6 +21,7 @@ CUDA batch and the autograd of the plain version for a CPU batch.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -30,8 +31,8 @@ import torch
 def _infer_scale(feat_hw, image_size) -> float:
     """torchvision MultiScaleRoIAlign.infer_scale: 2^round(log2(feat / img))
     per axis, which must agree."""
-    sy = 2.0 ** float(np.round(np.log2(feat_hw[0] / image_size[0])))
-    sx = 2.0 ** float(np.round(np.log2(feat_hw[1] / image_size[1])))
+    sy = 2.0 ** round(math.log2(feat_hw[0] / image_size[0]))  # half to even, as np.round
+    sx = 2.0 ** round(math.log2(feat_hw[1] / image_size[1]))
     if sy != sx:
         raise ValueError(f"anisotropic FPN scale {sy} vs {sx} for feature {feat_hw} "
                          f"on image {image_size}")

@@ -14,6 +14,7 @@ import torch
 from object_detectors_tpu.kernels.preprocess import preprocess_images as jax_preprocess
 from object_detectors_tpu.models import anchors as jax_anchors
 from object_detectors_tpu.models import faster_rcnn as JF
+from object_detectors_tpu.models import fpn as JFPN
 from object_detectors_tpu.models import roi_heads as JRH
 from object_detectors_tpu.models import rpn as JRPN
 from object_detectors_tpu.ops import boxes as jax_boxes
@@ -21,6 +22,7 @@ from object_detectors_tpu.ops import selection as jax_sel
 from object_detectors_tpu_torch import pipeline as PL
 from object_detectors_tpu_torch.models import anchors as A
 from object_detectors_tpu_torch.models import faster_rcnn as F
+from object_detectors_tpu_torch.models import fpn as FPN
 from object_detectors_tpu_torch.models import roi_heads as RH
 from object_detectors_tpu_torch.models import rpn as RPN
 from object_detectors_tpu_torch.ops import boxes as B
@@ -135,6 +137,17 @@ def test_radix_topk_multi_matches_jax():
         assert sorted(oi.tolist()) == sorted(np.asarray(ri).tolist())
 
 
+@pytest.mark.parametrize("src,dst", [((38, 38), (75, 75)), ((13, 19), (25, 38)),
+                                     ((3, 3), (5, 5)), ((4, 6), (8, 12))])
+def test_upsample_nearest_to_is_the_jax_resize(src, dst):
+    """Bitwise, at factors that are not integers (JAX's ``jax.image.resize``
+    fallback) and at an integer one (its broadcast)."""
+    x = np.random.RandomState(sum(src)).randn(2, *src, 3).astype(np.float32)
+    ref = np.asarray(JFPN._upsample_nearest_to(jnp.asarray(x), dst))
+    out = FPN.upsample_nearest_to(nchw(x), dst).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
 def test_anchors_match_jax():
     grids = [(24, 24), (12, 12), (6, 6), (3, 3), (2, 2)]
     sizes, ratios = A.rpn_anchor_config()
@@ -224,10 +237,24 @@ def _postprocess_inputs(seed, p=16, c=NUM_CLASSES):
     return logits, reg, props, valid
 
 
-@pytest.mark.parametrize("seed,tfidf", [(0, None), (1, None), (2, "vector")])
-def test_postprocess_detections_matches_jax(seed, tfidf):
+def _scores(logits, scale, loss_type):
+    """The postprocess's class scores, as JAX computes them per loss type."""
+    scaled = torch.from_numpy(logits) * torch.as_tensor(scale)
+    if loss_type == "ce":
+        return torch.softmax(scaled, -1)
+    if loss_type.startswith("gombit"):
+        return RH._gombit_prob(scaled)
+    return torch.sigmoid(scaled)
+
+
+# the ce cases keep their ids; each other loss type gets one case
+@pytest.mark.parametrize("seed,tfidf,loss_type", [
+    pytest.param(0, None, "ce", id="0-None"), pytest.param(1, None, "ce", id="1-None"),
+    pytest.param(2, "vector", "ce", id="2-vector"), (3, None, "bce"), (4, "vector", "focal_loss"),
+    (5, None, "gombit"), (6, "vector", "gombit_fl")])
+def test_postprocess_detections_matches_jax(seed, tfidf, loss_type):
     logits, reg, props, valid = _postprocess_inputs(seed)
-    roi = dataclasses.replace(TINY_ROI, detections_per_img=40)
+    roi = dataclasses.replace(TINY_ROI, detections_per_img=40, loss_type=loss_type)
     scale = 1.0
     if tfidf == "vector":
         scale = np.random.RandomState(9).uniform(0.5, 2.0, NUM_CLASSES).astype(np.float32)
@@ -243,17 +270,17 @@ def test_postprocess_detections_matches_jax(seed, tfidf):
     np.testing.assert_allclose(out[0], ref[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(out[1], ref[1], rtol=1e-4, atol=1e-6)
     # candidates above 0.05 exist, and NMS removed some of them
-    scores = torch.softmax(torch.from_numpy(logits) * torch.as_tensor(scale), -1)[..., 1:]
+    scores = _scores(logits, scale, loss_type)[..., 1:]
     passing = int(((scores > roi.score_thresh) & torch.from_numpy(valid)[..., None]).sum())
     assert 0 < out[3].sum() < passing
 
 
-def test_postprocess_rejects_unported_loss_types():
+def test_postprocess_rejects_an_unknown_loss_type():
     logits, reg, props, valid = _postprocess_inputs(0)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown loss_type"):
         RH.postprocess_detections(torch.from_numpy(logits), torch.from_numpy(reg),
                                   torch.from_numpy(props), torch.from_numpy(valid),
-                                  (IMG, IMG), RH.RoIHeadsConfig(loss_type="bce"))
+                                  (IMG, IMG), RH.RoIHeadsConfig(loss_type="softmax"))
 
 
 # -- the whole model and the pipeline -----------------------------------------
@@ -284,6 +311,18 @@ def test_frcnn_eval_matches_jax(tiny):
             return int(m(torch.from_numpy(x))[3].sum())
 
     assert kept(0.5) < kept(1.0)  # NMS dropped some
+
+
+def test_frcnn_eval_at_80px_matches_jax(tiny):
+    """At 80 px C5 is 3 x 3, so the FPN's top-down pathway upsamples P5 to
+    P4 by 5/3, where JAX falls back to ``jax.image.resize``."""
+    cfg, model, v, port, _ = tiny
+    x = np.random.RandomState(12).randn(2, 80, 80, 3).astype(np.float32)
+    ref = model.apply(v, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x))
+    _assert_detections_equal(out, ref)
+    assert out[3].sum() > 0
 
 
 def test_frcnn_eval_tfidf_vector_matches_jax(tiny):

@@ -210,6 +210,50 @@ def test_staged_rois_needs_16_byte_channel_runs_on_aligned_maps(dtype, c, offset
     assert bool(staged.any()) == vectors and not bool(staged.all())
 
 
+@pytest.mark.parametrize("c", [256, 8, 6])
+@pytest.mark.parametrize("output_size,foot,direct", [
+    ((7, 7), [4, 784, 0, 9, 784, 100], [1, 4]), ((14, 14), [4, 841, 0, 9, 3136, 289], [4])])
+def test_backward_routes_on_hand_built_boxes(c, output_size, foot, direct):
+    """The backward kernel's rule (kernels/roi_align.py:backward_routes) on
+    one 64 x 64 level of a 256² image: a box under a pixel there (2 x 2
+    pixels, and 3 x 3 across a pixel edge), bins of 4 pixels (28 x 28 at
+    7x7, the most at s = 2; 56 x 56 at 14x14), a box wholly outside (no
+    pixel) and one half outside. A RoI is staged unless its footprint
+    reaches half its samples' corners (4 s^2 oh ow: 784 at 7x7, 3136 at
+    14x14). Reductions, each of 4 channels where they come in runs of 4 and
+    of 1 otherwise, in each block of up to 64 channels: staged, one a
+    footprint pixel and vector; direct, one a vector and corner of every
+    sample, all inside here."""
+    boxes = torch.tensor([[[0.0, 0, 4, 4], [0, 0, 112, 112], [-200, -200, -150, -150],
+                           [10, 10, 11, 11], [0, 0, 224, 224], [-128, -128, 64, 64]]])
+    shapes = [(1, c, 64, 64)]
+    staged, pixels = K.backward_routes(shapes, boxes, (SIZE, SIZE), output_size)
+    assert pixels[0].tolist() == foot
+    assert torch.nonzero(~staged[0]).flatten().tolist() == direct
+    assert int(staged.sum()) == len(foot) - len(direct)
+    vectors = min(c, 64) // 4 if c % 4 == 0 else min(c, 64)  # in each block of channels
+    samples = 4 * 2 * 2 * output_size[0] * output_size[1]
+    want = sum(samples if i in direct else f for i, f in enumerate(foot)) * vectors * -(-c // 64)
+    assert K.backward_reductions(shapes, boxes, (SIZE, SIZE), output_size) == want
+
+
+@pytest.mark.parametrize("c,out,s,want", [
+    (256, (7, 7), 2, 64), (20, (7, 7), 2, 20), (6, (7, 7), 2, 6), (256, (14, 14), 4, 64),
+    (256, (7, 7), 16, 64), (256, (7, 7), 32, 20), (256, (17, 17), 2, 56), (3, (7, 7), 80, 0)])
+def test_backward_slice(c, out, s, want):
+    """The backward kernel's channel slice (kernels/roi_align.py:backward_slice):
+    64 channels, all of them where there are fewer, narrowed where 4 s^2 oh
+    ow items a channel would reach 2^22 (7x7 at s = 32: 20) or oh ow f32 a
+    channel exceed 64 KiB (17x17: 56); where not even 4 channels fit the
+    wrapper raises a ValueError naming the limit instead of launching."""
+    assert K.backward_slice(c, out, s) == want
+    if want == 0:
+        boxes = torch.zeros(1, 1, 4)
+        with pytest.raises(ValueError, match="2\\^22"):
+            KB.multiscale_roi_align_backward_cuda(torch.zeros(1, 1, *out, c), boxes,
+                                                  [(1, c, 8, 8)], (SIZE, SIZE), out, s)
+
+
 # -- the backward: kernels/roi_align_bwd.py's plain version and the autograd
 # of ops/roi_align.py:pool_multiscale, against jax.grad of the JAX poolers.
 # The same products in other summation orders: rtol 1e-4, atol 1e-5.
