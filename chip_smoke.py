@@ -9,8 +9,9 @@ Phases, each printed as JSON lines:
    versions; exits 1 without a GPU.
 2. build: compiles the four CUDA sources (five kernels: roi_align.cu holds
    the RoIAlign forward and backward) from
-   ``object_detectors_tpu_torch/csrc`` with nvcc, one process per source, all
-   at once; each one timed.
+   ``object_detectors_tpu_torch/csrc`` with nvcc, and the host library of the
+   COCO matcher (coco_eval_core.cpp) with g++, one process per source, all at
+   once; each one timed.
 3. kernel: holds the normalize kernel bitwise equal to its plain PyTorch
    version at 128x640x640x3, at ragged shapes and at a base offset by one byte.
 4. e2e: full-width YOLOv3 (Darknet-53, 80 classes, 640², bf16, seeded random
@@ -128,6 +129,32 @@ Phases, each printed as JSON lines:
    R-CNN step of ``train/tiny_steps.py`` at 64 px on the GPU against the
    CPU with the same draws.
 
+22. protocol: the port bench's ``run_protocol`` in its seeded branch at full
+   width (Darknet-53, 80 classes, 416², bf16; 256 images; batch sizes 2 to
+   128), one run a batch size (the CLI's two would not fit the time limit):
+   each row's forw_time, cpu_time, app_time, mAP, detections and the share
+   of app_time outside the pipeline calls (host batches, copies,
+   evaluation), the rows also in chiprun_out/protocol_rows.csv; one NMS
+   launch a pipeline call. Then 8 of its images in f32 (TF32 off) on the GPU
+   and the CPU: raw maps within RAW_RTOL, ``nms_majority`` identical on the
+   GPU's candidates, the evaluator's results on the card's NMS output
+   identical to those on the CPU's, stats within 1e-6; the two whole
+   pipelines: the same (image, category) results with their boxes within
+   RAW_ATOL carried through the decode and stats within 1e-6 (their order is
+   not compared: near-tied scores swap neighbours).
+23. eval_planted: the JAX round-trip test on the card: a renderable set of
+   32 images of 480² to 640² through ``yolo_batches_uint8`` (640² canvas),
+   the canvas resized to 416 on the GPU against the CPU (f32 within 1e-5,
+   bf16 within one bf16 ulp of max(|cpu|, 1)); each GT planted as a candidate
+   with three jittered duplicates; ``nms_majority`` on the card (one NMS
+   launch a batch) identical to the CPU; the evaluator's stats equal; mAP
+   and the GT pairs above IoU 0.6.
+24. ingest: the two canvas resizes timed (CUDA events) at [16, 640, 640, 3]
+   -> 416 (bicubic) and [2, 640, 640, 3] -> 800² (bilinear), with their
+   bytes and bounds; each family's tiny ingest train step on the GPU against
+   the CPU (the Faster R-CNN one launching RoIAlign forward, backward and NMS
+   once).
+
 The line before the last is the kernel table as JSON (only numbers this run
 measured, and the bounds); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -183,6 +210,9 @@ FROZEN_RANGES = {"weight": (0.5, 1.5), "bias": (-0.1, 0.1), "running_mean": (-0.
 # exp can differ by an ulp between the devices, and a corner is a difference
 # of values up to 640 px, so boxes agree to two f32 ulps at 640 (2^-13)
 SCORE_ATOL, BOX_ATOL = 1e-5, 2.0 ** -13
+# the bench's --protocol (416², 256 images) and eval_planted's canvas and sizes
+PROTOCOL_IMG, PROTOCOL_IMAGES, CANVAS = 416, 256, 640
+PLANTED_SIZES = ((480, 480), (480, 640), (600, 480), (640, 640))
 
 
 def emit(**fields):
@@ -1526,11 +1556,322 @@ def phase_frcnn_train(KR, KB, KN):
         emit(phase="frcnn_train", what=f"tiny Faster R-CNN 64 px, GPU vs CPU {k}",
              gpu=tiny["cuda"][k].item(), cpu=v.item())
         torch.testing.assert_close(tiny["cuda"][k].cpu(), v, rtol=TS.FRCNN_LOSS_RTOL, atol=1e-6)
-    check(tiny_launches == {"cpu": (0, 0), "cuda": (1, 1)},
-          f"the tiny Faster R-CNN step's RoIAlign launches: {tiny_launches}")
+    check(tiny_launches == {"cpu": (0, 0, 0), "cuda": (1, 1, 1)},
+          f"the tiny Faster R-CNN step's RoIAlign forward, backward and NMS launches: "
+          f"{tiny_launches}")
     check_update_gap(TS, "frcnn_train", "tiny Faster R-CNN 64 px", models, before,
                      worst_share=TS.FRCNN_UPDATE_SHARE)
     return dict(ms_per_step=dt * 1e3, launches=launches, nms=nms_time, roi_align_bwd=bwd_own)
+
+def protocol_f32_batch(B, PL, N, E, D):
+    """The protocol's first 8 images through the full-width pipeline in f32
+    (TF32 off) on the GPU and on the CPU. Gates: raw maps within RAW_RTOL;
+    ``nms_majority`` on the GPU's candidates identical on both devices; the
+    evaluator fed the card's NMS output and the CPU's of those candidates:
+    result lists identical, stats within 1e-6. The two devices' whole
+    pipelines: the same (image, category) results, the boxes of each such
+    group within RAW_ATOL carried through the decode (below), stats within
+    1e-6; their order is not compared (with 100 detections an image,
+    scores a few ulps apart swap neighbours). Returns the detections."""
+
+    gt, ds = B.protocol_set(PROTOCOL_IMAGES, PROTOCOL_IMG)
+    batches = D.yolo_batches(ds, 8, PROTOCOL_IMG, max_boxes=8)
+    batch = next(batches)
+    batches.close()
+    x = torch.from_numpy(batch["images"])
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kw = dict(img_size=PROTOCOL_IMG, dtype=torch.float32)
+        gpu = PL.build_pipeline(device="cuda", **kw)
+        cpu = PL.build_pipeline(device="cpu", **kw)
+        for g, c in zip(gpu.raw_outputs(x.cuda()), cpu.raw_outputs(x)):
+            g = g.cpu()
+            emit(phase="protocol", what="raw, f32 GPU vs CPU", shape=list(g.shape),
+                 max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+            torch.testing.assert_close(g, c, rtol=RAW_RTOL, atol=RAW_ATOL)
+        candidates = gpu.candidates(x.cuda())
+        pipelines = {"cuda": gpu.nms(*candidates), "cpu": cpu(x)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    on_gpu, _ = same_nms(N, "protocol", "f32 candidates of 8 protocol images", *candidates)
+    on_cpu = N.nms_majority(*(t.cpu() for t in candidates[:3]), NUM_CLASSES, 0.6, 100,
+                            valid=candidates[3].cpu())
+
+    def evaluate(out):
+        ev = E.DetectionEvaluator(gt, label_map=lambda c: c + 1)
+        ev.update(batch["image_ids"], *out, batch["scale_factors"])
+        return ev.results, ev.summarize()
+
+    (res_g, stats_g), (res_c, stats_c) = evaluate(on_gpu), evaluate(on_cpu)
+    gap = float(np.abs(stats_g - stats_c).max())
+    emit(phase="protocol", what="8 images in f32: evaluator on the card's NMS output vs the "
+                                "CPU's, same candidates", detections=len(res_c),
+         identical_results=res_g == res_c, stats_max_abs_diff=gap, map=float(stats_g[0]))
+    check(res_g == res_c, "the evaluator's results differ between the card's NMS output "
+                          "and the CPU's")
+    check(gap <= 1e-6, f"GPU and CPU stats differ by {gap}")
+
+    (res_g, stats_g), (res_c, stats_c) = (evaluate(pipelines[d]) for d in ("cuda", "cpu"))
+
+    def grouped(res):
+        """{(image, category): its boxes in sorted order}."""
+        out = {}
+        for r in res:
+            out.setdefault((r["image_id"], r["category_id"]), []).append(r["bbox"])
+        return {k: sorted(v) for k, v in out.items()}
+
+    groups = {dev: grouped(res) for dev, res in (("cuda", res_g), ("cpu", res_c))}
+    same = {k: len(v) for k, v in groups["cuda"].items()} == \
+        {k: len(v) for k, v in groups["cpu"].items()}
+    # RAW_ATOL of a raw logit moves a decoded center by at most stride / 4
+    # (8 px at stride 32) times it, and a side by its length times it (exp):
+    # each xywh value within RAW_ATOL * (8 + the box's longer side)
+    box_err, box_share = 0.0, 0.0
+    if same:
+        for k, boxes in groups["cpu"].items():
+            c = torch.tensor(boxes, dtype=torch.float64)
+            err = (torch.tensor(groups["cuda"][k], dtype=torch.float64) - c).abs()
+            tol = RAW_ATOL * (8 + c[:, 2:].amax(1, keepdim=True))
+            box_err = max(box_err, err.max().item())
+            box_share = max(box_share, (err / tol).max().item())
+    gap = float(np.abs(stats_g - stats_c).max())
+    emit(phase="protocol", what="8 images in f32: GPU pipeline vs CPU pipeline",
+         detections=[len(res_g), len(res_c)], same_image_category_results=same,
+         same_order=[(r["image_id"], r["category_id"]) for r in res_g]
+         == [(r["image_id"], r["category_id"]) for r in res_c],
+         box_max_abs_diff=box_err, box_max_share_of_tolerance=box_share,
+         stats_max_abs_diff=gap, map=[float(stats_g[0]), float(stats_c[0])])
+    check(same, "the GPU and CPU pipelines kept other (image, category) results")
+    check(box_share <= 1.0, f"a box differs between the GPU and CPU pipelines by "
+                            f"{box_share:.3g} of its tolerance")
+    check(gap <= 1e-6, f"the GPU and CPU pipelines' stats differ by {gap}")
+    return len(res_c)
+
+
+def phase_protocol(B, PL, N, KN):
+    """The port bench's ``run_protocol`` in its seeded branch at full width
+    (Darknet-53, 80 classes, 416², bf16; 256 images; the ladder 2 to 128),
+    one run a batch size (the CLI runs two; one keeps the phase within the
+    time limit), the NMS kernel's launches counted over it: one a pipeline
+    call. Then ``protocol_f32_batch``. Returns the launches."""
+    from object_detectors_tpu_torch.data import coco as D
+    from object_detectors_tpu_torch.eval import evaluator as E
+
+    out_csv = "chiprun_out/protocol_rows.csv"
+    KN.launches = 0
+    t0 = time.perf_counter()
+    rows = B.run_protocol(runs=1, out_csv=out_csv)
+    seconds = time.perf_counter() - t0
+    launches = KN.launches
+    calls = sum(1 + math.ceil(PROTOCOL_IMAGES / bs) for bs in B.PROTOCOL_LADDER)
+    for row in rows:
+        emit(phase="protocol", **row,
+             host_batching_and_eval_share=(row["app_time"] - row["forw_time"])
+             / row["app_time"])
+    emit(phase="protocol", images=PROTOCOL_IMAGES, img=PROTOCOL_IMG, runs=1, csv=out_csv,
+         seconds=seconds, pipeline_calls=calls, nms_launches=launches)
+    check([r["batch"] for r in rows] == list(B.PROTOCOL_LADDER), "protocol rows missing")
+    check(all(math.isfinite(r[k]) for r in rows for k in B.PROTOCOL_FIELDS),
+          "a protocol row is not finite")
+    check(launches == calls, f"the protocol launched the NMS kernel {launches} times in "
+                             f"{calls} pipeline calls")
+    protocol_f32_batch(B, PL, N, E, D)
+    return launches
+
+
+def planted_set():
+    """A renderable synthetic set at COCO-like sizes: 32 images of 480² to
+    640², up to 6 boxes of 80 classes each (the boxes lie inside 480²)."""
+    from object_detectors_tpu_torch.data import synthetic
+
+    gt = synthetic.make_coco_dicts(np.random.RandomState(7), 32, 480, NUM_CLASSES, 6)
+    for i, im in enumerate(gt["images"]):
+        im["height"], im["width"] = PLANTED_SIZES[i % len(PLANTED_SIZES)]
+    return gt, lambda info: synthetic.render_image(gt, info["id"])
+
+
+def planted_candidates(batch, rng, inp: int, n: int = 256):
+    """Each valid GT of a batch as a candidate (xyxy at ``inp``) at score
+    0.9, with three seeded jittered duplicates at lower scores, padded to
+    ``n`` candidates: (boxes, scores, labels, valid) on the CPU."""
+    b = len(batch["gt_valid"])
+    boxes = np.zeros((b, n, 4), np.float32)
+    scores = np.zeros((b, n), np.float32)
+    labels = np.zeros((b, n), np.int32)
+    valid = np.zeros((b, n), bool)
+    for i in range(b):
+        k = 0
+        for cxcywh, lab in zip(batch["gt_boxes"][i][batch["gt_valid"][i]],
+                               batch["gt_labels"][i][batch["gt_valid"][i]]):
+            cx, cy, w, h = cxcywh * inp
+            box = np.array([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], np.float32)
+            for j in range(4):
+                jitter = 0 if j == 0 else rng.uniform(-0.04, 0.04, 4) * [w, h, w, h]
+                boxes[i, k] = box + jitter
+                scores[i, k] = 0.9 if j == 0 else rng.uniform(0.2, 0.8)
+                labels[i, k], valid[i, k] = lab, True
+                k += 1
+    return [torch.from_numpy(a) for a in (boxes, scores, labels, valid)]
+
+
+def gt_pairs_above(gt, thr=0.6) -> int:
+    """GT pairs in one image whose IoU exceeds ``thr`` (class-agnostic NMS
+    keeps one box of such a pair)."""
+    by_image = {}
+    for a in gt["annotations"]:
+        x, y, w, h = a["bbox"]
+        by_image.setdefault(a["image_id"], []).append([x, y, x + w, y + h])
+    pairs = 0
+    for boxes in by_image.values():
+        b = torch.tensor(boxes, dtype=torch.float64)
+        lt = torch.maximum(b[:, None, :2], b[None, :, :2])
+        rb = torch.minimum(b[:, None, 2:], b[None, :, 2:])
+        inter = (rb - lt).clamp(min=0).prod(-1)
+        area = (b[:, 2:] - b[:, :2]).prod(-1)
+        iou = inter / (area[:, None] + area[None, :] - inter)
+        pairs += int((iou > thr).triu(1).sum())
+    return pairs
+
+
+def phase_eval_planted(N, KN, P):
+    """The card version of the JAX round-trip test
+    (tests/test_data_eval_pipeline.py:217): ``planted_set`` through
+    ``yolo_batches_uint8`` (640² canvas, batches of 16), the canvas resized
+    to 416 on the card against the CPU port (f32 within 1e-5; bf16 within
+    one bf16 ulp of max(|cpu|, 1)), each GT planted as a candidate with
+    three jittered duplicates, ``nms_majority`` on the card (the NMS kernel,
+    launches counted: one a batch) identical to the CPU, the evaluator's
+    stats on the card's output equal to the CPU's. Returns the launches."""
+    from object_detectors_tpu_torch.data import coco as D
+    from object_detectors_tpu_torch.eval import evaluator as E
+
+    gt, loader = planted_set()
+    ds = D.CocoDetectionDataset(gt, label_mode="lvis0", image_loader=loader)
+    evs = {dev: E.DetectionEvaluator(gt, label_map=lambda c: c + 1) for dev in ("cuda", "cpu")}
+    rng = np.random.RandomState(8)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    KN.launches = 0
+    batches = 0
+    for batch in D.yolo_batches_uint8(ds, 16, PROTOCOL_IMG, canvas_size=CANVAS, max_boxes=8):
+        canvas, sizes = torch.from_numpy(batch["images"]), torch.from_numpy(batch["sizes"])
+        for dtype in worst:
+            gpu = P.resize_normalize_from_canvas(canvas.cuda(), sizes.cuda(), PROTOCOL_IMG,
+                                                 dtype).cpu().float()
+            cpu = P.resize_normalize_from_canvas(canvas, sizes, PROTOCOL_IMG, dtype).float()
+            if dtype == torch.float32:
+                torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-5)
+            else:
+                check(((gpu - cpu).abs() <= 2.0 ** -7 * cpu.abs().clamp(min=1.0)).all(),
+                      "the bf16 canvas resize differs from the CPU by more than one ulp")
+            worst[dtype] = max(worst[dtype], (gpu - cpu).abs().max().item())
+        cand = planted_candidates(batch, rng, PROTOCOL_IMG)
+        before = KN.launches
+        on_gpu = N.nms_majority(*(t.cuda() for t in cand[:3]), NUM_CLASSES, 0.6, 100,
+                                valid=cand[3].cuda())
+        check(KN.launches - before == 1, "nms_majority launched the NMS kernel "
+                                         f"{KN.launches - before} times")
+        on_cpu = N.nms_majority(*cand[:3], NUM_CLASSES, 0.6, 100, valid=cand[3])
+        check(all(torch.equal(g.cpu(), c) for g, c in zip(on_gpu, on_cpu)),
+              "nms_majority on the planted candidates differs between GPU and CPU")
+        n = int((batch["image_ids"] >= 0).sum())
+        for dev, out in (("cuda", on_gpu), ("cpu", on_cpu)):
+            evs[dev].update(batch["image_ids"][:n], *(o[:n] for o in out),
+                            batch["scale_factors"][:n])
+        batches += 1
+    launches = KN.launches
+    stats = {dev: ev.summarize() for dev, ev in evs.items()}
+    pairs = gt_pairs_above(gt)
+    emit(phase="eval_planted", images=len(ds), batches=batches, canvas=CANVAS,
+         img=PROTOCOL_IMG, resize_max_abs_err={str(k): v for k, v in worst.items()},
+         nms_launches=launches, detections=len(evs["cuda"].results),
+         annotations=len(gt["annotations"]), map=float(stats["cuda"][0]),
+         map50=float(stats["cuda"][1]), gt_pairs_above_iou_0_6=pairs,
+         stats_identical=bool(np.array_equal(stats["cuda"], stats["cpu"])))
+    check(launches == batches, f"eval_planted launched the NMS kernel {launches} times in "
+                               f"{batches} batches")
+    check(float(np.abs(stats["cuda"] - stats["cpu"]).max()) <= 1e-6,
+          "the planted evaluation differs between GPU and CPU")
+    check(stats["cuda"][0] > 0.5, f"planted mAP {stats['cuda'][0]} is too low for planted GT")
+    if pairs == 0:
+        check(stats["cuda"][0] >= 1 - 1e-6, "planted GT without overlapping pairs scored "
+                                            f"mAP {stats['cuda'][0]}")
+    return launches
+
+
+def ingest_time(fn, canvas, out_shape, taps: int):
+    """A canvas resize timed with CUDA events (f32 output, TF32 off), with
+    the bytes it must move (the uint8 canvas read, the f32 images written)
+    and the operations of a separable ``taps``-tap filter (the least the
+    function needs), beside the dense products it runs."""
+    b, hc, wc, c = canvas.shape
+    oh, ow = out_shape
+    ms = cuda_ms(fn, 20)
+    moved = canvas.numel() + b * oh * ow * c * 4
+    ops = 2 * taps * b * c * (oh * wc + oh * ow)
+    dense = 2 * b * c * (oh * hc * wc + oh * ow * wc)
+    bound, by = time_bound(moved, ops)
+    return dict(ms=ms, bytes=moved, gb_per_s=moved / ms / 1e6, bound_ms=bound, bound_by=by,
+                dense_flops=dense, dense_tflop_per_s=dense / ms / 1e9)
+
+
+def phase_ingest(P):
+    """The two canvas resizes timed at their paths' shapes (stage timings,
+    not kernels: plain PyTorch products against the sampling matrices):
+    the YOLO bicubic resize of a uint8 [16, 640, 640, 3] canvas to 416 and
+    the R-CNN bilinear resize of [2, 640, 640, 3] to 800² (the canvas
+    detection_main sizes to the largest image; a COCO image's longer side is
+    640). Then each family's tiny ingest train step (``tiny_steps``) on the
+    GPU against the CPU within the tolerances of ``yolo_train`` and
+    ``frcnn_train``, the Faster R-CNN one launching each of its three kernels
+    once."""
+    from object_detectors_tpu_torch.train import tiny_steps as TS
+
+    rng = np.random.RandomState(9)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yolo = torch.from_numpy(rng.randint(0, 256, (16, CANVAS, CANVAS, 3), dtype=np.uint8))
+        ysizes = torch.from_numpy(np.stack([rng.randint(320, CANVAS + 1, 16),
+                                            rng.randint(320, CANVAS + 1, 16)], 1))
+        yolo, ysizes = yolo.cuda(), ysizes.cuda()
+        t = ingest_time(lambda: P.resize_normalize_from_canvas(yolo, ysizes, PROTOCOL_IMG,
+                                                               torch.float32),
+                        yolo, (PROTOCOL_IMG, PROTOCOL_IMG), 4)
+        emit(phase="ingest", stage="resize_normalize_from_canvas", canvas=list(yolo.shape),
+             out=[16, PROTOCOL_IMG, PROTOCOL_IMG, 3], out_dtype="float32", **t)
+        rcnn = torch.from_numpy(rng.randint(0, 256, (2, CANVAS, CANVAS, 3),
+                                            dtype=np.uint8)).cuda()
+        rsizes = torch.tensor([[480, 640], [640, 427]]).cuda()
+        t = ingest_time(lambda: P.rcnn_resize_normalize_from_canvas(rcnn, rsizes, (800, 800),
+                                                                    800, 1333),
+                        rcnn, (800, 800), 2)
+        emit(phase="ingest", stage="rcnn_resize_normalize_from_canvas", canvas=list(rcnn.shape),
+             out=[2, 800, 800, 3], out_dtype="float32", **t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+    models, before, metrics = TS.yolo_step_on_both(torch.float32, ingest=True)
+    for key in ("loss", "sub_losses", "stats"):
+        g, c = metrics["cuda"][key].cpu(), metrics["cpu"][key]
+        emit(phase="ingest", what=f"tiny Darknet ingest step (128² canvas to 96), GPU vs CPU "
+                                  f"{key}", max_abs_err=(g - c).abs().max().item(),
+             max_abs_ref=c.abs().max().item())
+        torch.testing.assert_close(g, c, rtol=TS.TRAIN_LOSS_RTOL, atol=1e-6)
+    check_update_gap(TS, "ingest", "tiny Darknet ingest step", models, before,
+                     norm_share=TS.YOLO_F32_UPDATE_NORM)
+
+    models, before, tiny, launches = TS.frcnn_step_on_both(ingest=True)
+    for k, v in tiny["cpu"].items():
+        emit(phase="ingest", what=f"tiny Faster R-CNN ingest step (96² canvas to 64), GPU vs "
+                                  f"CPU {k}", gpu=tiny["cuda"][k].item(), cpu=v.item())
+        torch.testing.assert_close(tiny["cuda"][k].cpu(), v, rtol=TS.FRCNN_LOSS_RTOL, atol=1e-6)
+    emit(phase="ingest", what="tiny Faster R-CNN ingest step launches (RoIAlign forward, "
+                              "backward, NMS)", launches=launches)
+    check(launches == {"cpu": (0, 0, 0), "cuda": (1, 1, 1)},
+          f"the tiny Faster R-CNN ingest step's launches: {launches}")
+    check_update_gap(TS, "ingest", "tiny Faster R-CNN ingest step", models, before,
+                     worst_share=TS.FRCNN_UPDATE_SHARE)
 
 
 def main() -> int:
@@ -1556,14 +1897,19 @@ def main() -> int:
     from object_detectors_tpu_torch.models import rpn as RPN
     from object_detectors_tpu_torch.ops import nms as N
 
-    sources = ("preprocess", "roi_align", "nms", "fused_block")
+    from object_detectors_tpu_torch.eval import native
+
+    sources = ("preprocess", "roi_align", "nms", "fused_block", "coco_eval_core")
     built = {name: not _build.library_path(name).exists() for name in sources}
     t0 = time.perf_counter()
     seconds = _build.build_all(sources)
     for name in sources:
         _build.load_library(name)
-        emit(phase="build", kernel=name, nvcc=_build.find_nvcc(), built=built[name],
-             seconds=seconds[name])
+        src = _build.source_path(name)
+        emit(phase="build", source=str(src.relative_to(_build.CSRC_DIR.parent.parent)),
+             compiler=_build.find_nvcc() if src.suffix == ".cu" else _build.find_cxx(),
+             built=built[name], seconds=seconds[name])
+    native.load()
     emit(phase="build", all_seconds=time.perf_counter() - t0)
 
     max_err = phase_kernel(P)
@@ -1601,6 +1947,10 @@ def main() -> int:
     yolo_train = phase_yolo_train(B)
     frcnn_train = phase_frcnn_train(KR, KB, KN)
 
+    protocol_nms = phase_protocol(B, PL, N, KN)
+    planted_nms = phase_eval_planted(N, KN, P)
+    phase_ingest(P)
+
     roi["max_abs_err"] = max(roi["max_abs_err"], roi_err)
     roi["launches_by_path"] = {"frcnn640": roi["launches"],
                                "frcnn_train800": frcnn_train["launches"]["roi_align"]}
@@ -1612,7 +1962,8 @@ def main() -> int:
                                "nms_p50_latency": latency_nms,
                                "frcnn640": frcnn_launches["nms"],
                                "retinanet640": retina_nms_launches,
-                               "frcnn_train800": frcnn_train["launches"]["nms"]}
+                               "frcnn_train800": frcnn_train["launches"]["nms"],
+                               "protocol": protocol_nms, "eval_planted": planted_nms}
     nms["launches"] = sum(nms["launches_by_path"].values())
     nms["frcnn_train800_rpn_shape"] = {key: frcnn_train["nms"][key] for key in MEASURED_NMS
                                        if key in frcnn_train["nms"]}

@@ -1,6 +1,7 @@
 """Bench of the port on one NVIDIA GPU (port of the root ``bench.py``).
 
     python -m object_detectors_tpu_torch.bench [--quick] [--configs ...]
+    python -m object_detectors_tpu_torch.bench --protocol [--batch-sizes ...]
 
 Rows, each on seeded random weights and its own seeded uint8 batches:
 
@@ -29,8 +30,24 @@ the timed window, back-to-back calls, one host read of the last output at
 the end; host-to-device copies are outside it, the cast and normalize
 inside. Prints one JSON line: ``metric``, ``value``, ``unit``, ``configs``,
 ``e2e``, ``device``, and ``card`` (nvidia-smi's name and power limit, also
-in every row). Left out: ``vs_baseline`` (it divides by a TPU target) and
-``--protocol`` (waits for the data and eval port).
+in every row). Left out: ``vs_baseline`` (it divides by a TPU target).
+
+``--protocol`` runs the reference's accuracy-and-latency protocol instead
+(``run_protocol``, the root bench's): per batch size of the ladder 2, 4, 8,
+16, 32, 64, 128 (``--batch-sizes``), two runs over 256 synthetic COCO-format
+images at 416² (seeded random uint8 images, 80 classes, labels 0-based as
+LVIS's) through ``data.coco.yolo_batches`` (host resize, here the identity,
+and normalize), full-width YOLOv3 (Darknet-53, 80 classes, bf16, top-256,
+100 detections, conf 0.1, IoU 0.6: ``nms_majority`` on the NMS kernel) and
+``eval.evaluator.DetectionEvaluator`` (COCO protocol, native matcher). Each
+run is a CSV row: ``forw_time`` (the pipeline calls, each to its outputs
+being ready on the device: one synchronize a batch, as JAX's
+``block_until_ready``), ``cpu_time`` (``summarize``), ``app_time`` (the whole
+run: host batches, pipeline, host copies, evaluation) and ``map``; the
+returned rows also carry ``detections``. The CSV goes to
+``output/benchmark_res.csv``; the printed line has ``metric``
+("benchmark_protocol"), ``value`` (the last row's mAP), ``unit``, ``rows``
+and ``card``.
 
 ``mfu`` of a row is the floating-point operations that
 ``torch.utils.flop_counter.FlopCounterMode`` counts over one call, divided
@@ -46,7 +63,9 @@ A row that fails raises; the run then prints no line.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
+import os
 import subprocess
 import time
 
@@ -55,6 +74,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from object_detectors_tpu_torch import serve as S
+from object_detectors_tpu_torch._device import resolve_device
 from object_detectors_tpu_torch.models import yolo_criterion as YC
 from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
 from object_detectors_tpu_torch.ops.nms import nms_majority
@@ -65,6 +85,10 @@ from object_detectors_tpu_torch.train import optim
 from object_detectors_tpu_torch.train import trainer
 
 BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 tensor cores, published
+PROTOCOL_LADDER = (2, 4, 8, 16, 32, 64, 128)
+PROTOCOL_CSV = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "output", "benchmark_res.csv")
+PROTOCOL_FIELDS = ("batch", "forw_time", "cpu_time", "app_time", "map")
 
 
 def card_line() -> str:
@@ -332,6 +356,95 @@ def run_nms_latency(bs=512, n_cand=256, max_det=100, num_classes=80, iters=20, d
     return results
 
 
+def protocol_set(num_images=256, img_size=416, num_classes=None):
+    """The protocol's synthetic COCO-format set (labels 0-based, as LVIS's)
+    and its dataset. Without ``num_classes``: ``num_images`` seeded random
+    uint8 images of ``img_size``² with 80 classes. With it: the trained
+    branch's renderable set (96² images, seed 1)."""
+    from object_detectors_tpu_torch.data import coco as D
+    from object_detectors_tpu_torch.data import synthetic
+
+    if num_classes is not None:
+        gt, loader = synthetic.renderable_dataset(
+            np.random.RandomState(1), num_images=num_images, img_size=96,
+            num_classes=num_classes)
+    else:
+        gt = synthetic.make_coco_dicts(np.random.RandomState(0), num_images=num_images,
+                                       img_size=img_size, num_classes=80)
+        imgs = {im["id"]: np.random.RandomState(im["id"]).randint(
+            0, 255, (img_size, img_size, 3)).astype(np.uint8) for im in gt["images"]}
+
+        def loader(info):
+            return imgs[info["id"]]
+    return gt, D.CocoDetectionDataset(gt, label_mode="lvis0", image_loader=loader)
+
+
+def run_protocol(batch_sizes=PROTOCOL_LADDER, img_size=416, num_images=256,
+                 out_csv=PROTOCOL_CSV, runs=2, device="cuda", model=None, meta=None):
+    """The reference benchmark protocol (the root ``bench.py:run_protocol``):
+    per batch size ``runs`` timed runs over the whole synthetic set, each a
+    CSV row (module docstring). The warm-up call of each batch size is
+    outside the timed window.
+
+    Without ``model``: 256 seeded random 416² images of a synthetic COCO
+    set with 80 classes and the full-width seeded YOLOv3 of
+    ``build_pipeline(img_size=img_size)``. With ``model`` (a ``YoloHead``,
+    e.g. trained weights carried over from the JAX package) and ``meta``
+    ({"img_size", "num_classes", "backbone_layers"}): the JAX protocol's
+    trained branch, the renderable synthetic set (96² images, seed 1)
+    scored at ``meta["img_size"]`` with top-64 and 20 detections. Returns
+    the rows."""
+    from object_detectors_tpu_torch.data import coco as D
+    from object_detectors_tpu_torch.eval import evaluator as E
+    from object_detectors_tpu_torch.eval import native
+
+    dev = resolve_device(device)
+    native.load()  # the matcher's build stays out of the first row's cpu_time
+    if model is not None:
+        img_size = meta["img_size"]
+        gt, ds = protocol_set(num_images, num_classes=meta["num_classes"])
+        pipe = build_pipeline(num_classes=meta["num_classes"], img_size=img_size, topk=64,
+                              max_det=20, model=model, device=dev)
+    else:
+        gt, ds = protocol_set(num_images, img_size)
+        pipe = build_pipeline(img_size=img_size, device=dev)
+
+    def ready():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rows = []
+    for bs in batch_sizes:
+        pipe(torch.zeros((bs, img_size, img_size, 3), dtype=pipe.dtype, device=dev))
+        ready()  # warm-up, outside the app window
+        for _ in range(runs):
+            t_app0 = time.perf_counter()
+            forw = 0.0
+            ev = E.DetectionEvaluator(gt, label_map=lambda c: c + 1)
+            for batch in D.yolo_batches(ds, bs, img_size, max_boxes=8):
+                x = torch.from_numpy(batch["images"]).to(dev).to(pipe.dtype)
+                t0 = time.perf_counter()
+                out = pipe(x)
+                ready()
+                forw += time.perf_counter() - t0
+                n = int((batch["image_ids"] >= 0).sum())  # the filled slots come last
+                ev.update(batch["image_ids"][:n], *(o[:n] for o in out),
+                          batch["scale_factors"][:n])
+            t0 = time.perf_counter()
+            stats = ev.summarize()
+            cpu_eval = time.perf_counter() - t0
+            app = time.perf_counter() - t_app0
+            rows.append({"batch": bs, "forw_time": round(forw, 3),
+                         "cpu_time": round(cpu_eval, 3), "app_time": round(app, 3),
+                         "map": round(float(stats[0]), 5), "detections": len(ev.results)})
+    os.makedirs(os.path.dirname(out_csv) or ".", exist_ok=True)
+    with open(out_csv, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=PROTOCOL_FIELDS, extrasaction="ignore")
+        w.writeheader()
+        w.writerows(rows)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -344,7 +457,19 @@ def main(argv=None):
     ap.add_argument("--batch-sizes", type=int, nargs="*", default=None)
     ap.add_argument("--device-resident", action="store_true",
                     help="normalized bf16 batches on the card instead of uint8")
+    ap.add_argument("--protocol", action="store_true",
+                    help="the reference benchmark protocol instead of the rows: 256 "
+                         "synthetic 416² images through full-width YOLOv3, NMS and the "
+                         "COCO evaluator, two runs per batch size of 2 to 128 "
+                         "(--batch-sizes); timing and mAP rows to output/benchmark_res.csv")
     args = ap.parse_args(argv)
+
+    if args.protocol:
+        card = card_line()
+        rows = run_protocol(tuple(args.batch_sizes or PROTOCOL_LADDER))
+        print(json.dumps({"metric": "benchmark_protocol", "value": rows[-1]["map"],
+                          "unit": "mAP", "rows": rows, "card": card}))
+        return
 
     if args.batch_sizes:
         sizes = tuple(args.batch_sizes)

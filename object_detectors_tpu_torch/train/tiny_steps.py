@@ -63,11 +63,13 @@ def on_both(make: Callable[[], torch.nn.Module], step: Callable, dtype=torch.flo
     return models, before, outs
 
 
-def yolo_step_on_both(dtype=torch.float32):
+def yolo_step_on_both(dtype=torch.float32, ingest: bool = False):
     """A tiny Darknet YOLO (``backbone_layers=(1, 1, 1, 1, 1)``, 4 classes,
     96 px, batch 2, 6 GT slots) takes one SGD step (lr 1e-3, weight decay
-    5e-4, momentum 0.9) on each device. Returns (models, parameters
-    before, the step's metrics)."""
+    5e-4, momentum 0.9) on each device. With ``ingest`` the images come as
+    a uint8 canvas [2, 128, 128, 3] (true sizes 128² and 100 x 120) through
+    ``yolo_train_step_ingest``, the resize on each device. Returns (models,
+    parameters before, the step's metrics)."""
     from object_detectors_tpu_torch.models import yolo_criterion as YC
     from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
     from object_detectors_tpu_torch.train import optim, trainer
@@ -79,9 +81,13 @@ def yolo_step_on_both(dtype=torch.float32):
         rng.randint(0, 4, (2, 6)), rng.rand(2, 6) < 0.7)]
     tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 1e-3, 5e-4, 0.9),
                               optim.SchedulerConfig())
+    canvas, sizes = _canvas(1, 128, [[128, 128], [100, 120]])
 
     def step(model, dev):
         state = trainer.create_yolo_train_state(model, tx)
+        if ingest:
+            return trainer.yolo_train_step_ingest(state, canvas.to(dev), sizes.to(dev),
+                                                  *[t.to(dev) for t in gt], cfg, 4)[1]
         return trainer.yolo_train_step(state, images.to(dev, dtype), *[t.to(dev) for t in gt],
                                        cfg, 4)[1]
 
@@ -90,13 +96,24 @@ def yolo_step_on_both(dtype=torch.float32):
         step, dtype)
 
 
-def frcnn_step_on_both():
+def _canvas(seed: int, size: int, sizes):
+    """A seeded uint8 canvas [len(sizes), size, size, 3] and its true (h, w)
+    sizes, as CPU tensors."""
+    rng = np.random.RandomState(seed)
+    canvas = rng.randint(0, 256, (len(sizes), size, size, 3)).astype(np.uint8)
+    return torch.from_numpy(canvas), torch.tensor(sizes, dtype=torch.int32)
+
+
+def frcnn_step_on_both(ingest: bool = False):
     """A tiny Faster R-CNN (``resnet_layers=(1, 1, 1, 1)``, 5 classes,
     64 px, batch 2 with one background image) takes one SGD step (lr
     0.0025, weight decay 1e-4, momentum 0.9) on each device, both samplers
-    on the same seeded uniforms. Returns (models, parameters before, the
-    four losses, and the RoIAlign forward and backward kernels' launches
-    during each device's step)."""
+    on the same seeded uniforms. With ``ingest`` the images come as a uint8
+    canvas [2, 96, 96, 3] (true sizes 96² and 72 x 90, drawn min sizes 64
+    and 56, max size 107) through ``frcnn_train_step_ingest``. Returns
+    (models, parameters before, the four losses, and the launches of the
+    RoIAlign forward, its backward and NMS during each device's step)."""
+    from object_detectors_tpu_torch.kernels import nms as KN
     from object_detectors_tpu_torch.kernels import roi_align as KR
     from object_detectors_tpu_torch.kernels import roi_align_bwd as KB
     from object_detectors_tpu_torch.models import faster_rcnn as F
@@ -118,15 +135,22 @@ def frcnn_step_on_both():
              "roi": (torch.rand(2, 18, generator=g), torch.rand(2, 18, generator=g))}
     tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 0.0025, 1e-4, 0.9),
                               optim.SchedulerConfig())
+    canvas, sizes = _canvas(2, 96, [[96, 96], [72, 90]])
     launches = {}
 
     def step(model, dev):
         state = trainer.create_frcnn_train_state(model, tx)
-        start = KR.launches, KB.launches
-        out = trainer.frcnn_train_step(
-            state, x.to(dev), gt.to(dev), labels.to(dev), valid.to(dev),
-            uniforms={k: tuple(t.to(dev) for t in v) for k, v in draws.items()})[2]
-        launches[dev] = KR.launches - start[0], KB.launches - start[1]
+        start = KR.launches, KB.launches, KN.launches
+        targets = gt.to(dev), labels.to(dev), valid.to(dev)
+        kw = dict(uniforms={k: tuple(t.to(dev) for t in v) for k, v in draws.items()})
+        if ingest:
+            out = trainer.frcnn_train_step_ingest(
+                state, canvas.to(dev), sizes.to(dev), *targets, (64, 64),
+                min_sizes=torch.tensor([64.0, 56.0], device=dev), max_size=107, **kw)[2]
+        else:
+            out = trainer.frcnn_train_step(state, x.to(dev), *targets, **kw)[2]
+        launches[dev] = (KR.launches - start[0], KB.launches - start[1],
+                         KN.launches - start[2])
         return out
 
     models, before, losses = on_both(lambda: F.init_frcnn_(F.FasterRCNN(cfg), seed=3), step)

@@ -1,5 +1,5 @@
 """Training steps (port of the JAX package's ``train/trainer.py`` and of the
-Faster R-CNN step of its ``detection_main.py``).
+Faster R-CNN steps of its ``detection_main.py``).
 
 A ``TrainState`` holds the model (its parameters, and its batch-norm running
 statistics as buffers), the optimizer and the step count; a step runs the
@@ -17,6 +17,9 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
+from object_detectors_tpu_torch.kernels.preprocess import (
+    rcnn_resize_normalize_from_canvas, resize_normalize_from_canvas,
+)
 from object_detectors_tpu_torch.models import yolo_criterion as YC
 from object_detectors_tpu_torch.train.optim import ScheduledOptimizer
 
@@ -100,6 +103,24 @@ def yolo_train_step(state: TrainState, images: torch.Tensor, gt_boxes: torch.Ten
                    "grad_norm": grad_norm}
 
 
+def yolo_train_step_ingest(state: TrainState, canvas: torch.Tensor, sizes: torch.Tensor,
+                           gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                           gt_valid: torch.Tensor, cfg: YC.YoloLossConfig, num_classes: int,
+                           out_dim: int | None = None, anchors_per_scale: int = 3,
+                           class_weights: torch.Tensor | None = None,
+                           idf_logits: torch.Tensor | float = 1.0):
+    """Device-ingest step (JAX ``train/trainer.py:yolo_train_step_ingest``):
+    a uint8 canvas [B, Hc, Wc, 3] with the true (h, w) ``sizes`` [B, 2] is
+    bicubic-resized to ``out_dim`` (default ``cfg.img_size``) and normalized
+    in f32 on its device (``resize_normalize_from_canvas``), then
+    ``yolo_train_step``. GT is relative cxcywh, so the resize never touches
+    it."""
+    images = resize_normalize_from_canvas(canvas, sizes, out_dim or cfg.img_size,
+                                          torch.float32)
+    return yolo_train_step(state, images, gt_boxes, gt_labels, gt_valid, cfg, num_classes,
+                           anchors_per_scale, class_weights, idf_logits)
+
+
 @torch.no_grad()
 def yolo_eval_step(state: TrainState, images: torch.Tensor, cfg: YC.YoloLossConfig,
                    num_classes: int, anchors_per_scale: int = 3,
@@ -150,3 +171,22 @@ def frcnn_train_step(state: TrainState, images: torch.Tensor, gt_boxes: torch.Te
                                        class_weights, generator, uniforms)
     backward_and_update(state, total)
     return state, total.detach(), {k: v.detach() for k, v in losses.items()}
+
+
+def frcnn_train_step_ingest(state: TrainState, canvas: torch.Tensor, sizes: torch.Tensor,
+                            gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                            gt_valid: torch.Tensor, out_hw: tuple,
+                            min_sizes: torch.Tensor | None = None, min_size: int = 800,
+                            max_size: int = 1333, tfidf=None, class_weights=None,
+                            generator: torch.Generator | None = None, uniforms=None):
+    """Device-ingest Faster R-CNN step (JAX ``detection_main.py:train_step_u8``):
+    a uint8 canvas [B, Hc, Wc, 3] at native resolution with its true (h, w)
+    ``sizes`` gets the per-image min/max-size bilinear resize, normalize and
+    zero pad to ``out_hw`` on its device (``rcnn_resize_normalize_from_canvas``;
+    ``min_sizes`` [B] replays the host's drawn min sizes, against which the
+    GT boxes were scaled), then ``frcnn_train_step``. Returns what that
+    returns."""
+    images, _, _ = rcnn_resize_normalize_from_canvas(canvas, sizes, out_hw, min_size,
+                                                     max_size, torch.float32, min_sizes)
+    return frcnn_train_step(state, images, gt_boxes, gt_labels, gt_valid, tfidf,
+                            class_weights, generator, uniforms)

@@ -87,16 +87,34 @@ def test_cuda_pipeline_without_gpu_raises(monkeypatch):
         PL.build_pipeline_uint8(backbone_layers=LAYERS)
 
 
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|msgpack|object_detectors_tpu)\b",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|orbax|msgpack|pandas|object_detectors_tpu)\b",
+    re.MULTILINE)
+# the image and YAML libraries, which the card may lack, only inside functions
+AT_MODULE_LEVEL = re.compile(r"^(import|from)\s+(cv2|PIL|yaml)\b", re.MULTILINE)
+# a C/C++/CUDA source of the port includes nothing of the JAX package's tree
+FOREIGN_INCLUDE = re.compile(r'^\s*#\s*include\s*["<][^">]*(native|object_detectors_tpu)/',
+                             re.MULTILINE)
+PORT_SOURCES = sorted(str(p.relative_to(ROOT)) for p in [
+    *(ROOT / "object_detectors_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+    *(ROOT / "object_detectors_tpu_torch" / "csrc").glob("*.c*")])
 
 
-@pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in
-    [*(ROOT / "object_detectors_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+@pytest.mark.parametrize("path", PORT_SOURCES)
 def test_port_imports_nothing_of_jax(path):
     source = (ROOT / path).read_text()
-    assert not FORBIDDEN.search(source), f"{path} imports JAX or the JAX package"
+    if path.endswith(".py"):
+        assert not FORBIDDEN.search(source), f"{path} imports JAX, pandas or the JAX package"
+        assert not AT_MODULE_LEVEL.search(source), f"{path} imports cv2, PIL or yaml at import"
+    else:
+        assert not FOREIGN_INCLUDE.search(source), f"{path} includes a file of the JAX package"
+
+
+def test_import_guard_covers_the_data_and_eval_layer():
+    for name in ("data/coco.py", "data/transforms.py", "data/masks.py", "eval/coco_map.py",
+                 "eval/native.py", "utils/config.py", "csrc/coco_eval_core.cpp",
+                 "csrc/nms.cu"):
+        assert f"object_detectors_tpu_torch/{name}" in PORT_SOURCES, name
 
 
 def test_chip_smoke_runs_yolo640_at_the_bench_batch():

@@ -200,7 +200,7 @@ def test_yolo_train_step_on_the_gpu_matches_the_cpu(dtype):
 def test_frcnn_train_step_on_the_gpu_matches_the_cpu():
     _needs_gpu()
     models, before, losses, launches = TS.frcnn_step_on_both()
-    assert launches == {"cpu": (0, 0), "cuda": (1, 1)}
+    assert launches == {"cpu": (0, 0, 0), "cuda": (1, 1, 1)}
     for k, v in losses["cpu"].items():
         torch.testing.assert_close(losses["cuda"][k].cpu(), v, rtol=TS.FRCNN_LOSS_RTOL,
                                    atol=1e-6)
