@@ -155,6 +155,29 @@ Phases, each printed as JSON lines:
    the CPU (the Faster R-CNN one launching RoIAlign forward, backward and NMS
    once).
 
+25-31. detection_main's architectures through ``ModelAdapter`` at its CLI's
+   defaults (800², batch 2, f32 with TF32 for cuDNN, seeded weights, the
+   91-way class scores scaled by CLS_SCALE; frcnn_train800's GT: 20 slots,
+   70 % valid, masks the boxes' interiors, 17 keypoints in each box):
+   maskrcnn800 and kprcnn800 (``detect_with_masks``,
+   ``detect_with_keypoints``: ms a batch, two RoIAlign launches a call, the
+   7x7 box pooler and the 14x14 branch pooler, and two NMS; the 14x14
+   pooler against its plain version at its own maps and detections, timed
+   beside its bound with its staged and direct RoIs; Keypoint R-CNN's exact
+   decode timed at its own logits; one image GPU vs CPU: FPN maps and RPN
+   outputs within FEAT_*, then the rest of the path on both devices from
+   the GPU's maps, kept sets identical), maskrcnn_train800 and
+   kprcnn_train800 (``detection_train_step``: ms a step, peak memory, two
+   RoIAlign forwards, two backwards and one NMS a step; the 14x14 backward
+   at a step's own cotangent [2, 512, 14, 14, 256] against its plain
+   version, timed beside its bound; the tiny GPU-vs-CPU step of
+   ``tiny_steps.adapter_step_on_both``), ssd300 (``detect`` at 300²: one
+   NMS launch a call, the kernel identical to its plain version at the
+   postprocess's own 2 x 1200 candidates and timed there; raw outputs GPU vs
+   CPU, the postprocess on both devices from the GPU's outputs identical),
+   ssd_train300 and retinanet_train800 (ms a step, peak memory, the tiny
+   step).
+
 The line before the last is the kernel table as JSON (only numbers this run
 measured, and the bounds); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -1430,8 +1453,9 @@ def tf32_state():
 def check_update_gap(TS, phase, what, models, before, worst_share=None, norm_share=None):
     """The parameter updates of a tiny step on the GPU against the CPU
     (``tiny_steps.update_gap``), each tensor's largest difference as a
-    share of its largest update at most ``worst_share``, the difference's
-    norm as a share of the update's at most ``norm_share``."""
+    share of its largest update (at least NULL_UPDATE_SHARE of the largest
+    update of any tensor) at most ``worst_share``, the difference's norm as
+    a share of the update's at most ``norm_share``."""
     gap = TS.update_gap(models, before)
     emit(phase=phase, what=f"{what}: GPU vs CPU parameter updates", **gap,
          worst_share_tolerance=worst_share, norm_share_tolerance=norm_share)
@@ -1874,6 +1898,341 @@ def phase_ingest(P):
                      worst_share=TS.FRCNN_UPDATE_SHARE)
 
 
+# -- detection_main's architectures: Mask and Keypoint R-CNN, SSD300,
+# RetinaNet training, all through ``ModelAdapter`` at the CLI's defaults
+
+DM_IMG, DM_BATCH, SSD_IMG = 800, 2, 300   # detection_main --image-size / --batch-size
+CLS_SCALE = 40.0   # class scores spread apart, as the CPU tests do (see dm_adapter)
+KP_ATOL = 1e-3  # GPU vs CPU keypoints in pixels, the CPU tests' tolerance against JAX
+
+
+def dm_adapter(DM, name, size, device="cuda"):
+    """``ModelAdapter(name)`` at full width (91 classes; Keypoint R-CNN 2),
+    seeded weights, f32. The 91-way class scores are scaled by CLS_SCALE:
+    at the init's scale a 91-way softmax leaves every score near 1/91, below
+    the R-CNN threshold of 0.05 (no detection, the mask branch on zero
+    boxes), and near-tied everywhere. Keypoint R-CNN's 2-way scores stay
+    near 1/2 at the init's scale (scaled, the person score of every
+    proposal falls on one side of 0.05 together)."""
+    ncls = 2 if name.startswith("keypoint") else 91
+    ad = DM.ModelAdapter(name, ncls, size, device=device, seed=0)
+    with torch.no_grad():
+        if name in DM.TWO_STAGE and ncls > 2:
+            ad.model.box_predictor.cls_score.weight.mul_(CLS_SCALE)
+        elif name.startswith("ssd"):
+            for i in range(6):
+                getattr(ad.model.head, f"cls{i}").weight.mul_(CLS_SCALE)
+    return ad
+
+
+def dm_batches(name, size=DM_IMG, count=3, device="cuda"):
+    """frcnn_train800's seeded batches (normalized images, 20 GT slots an
+    image, 70 % valid) as ``ModelAdapter`` batches; Mask R-CNN's masks are
+    the GT boxes' interiors [B, 20, H, W], Keypoint R-CNN's 17 keypoints a
+    box lie in it (80 % visible) and its labels are 1 (2 classes)."""
+    from object_detectors_tpu_torch.analysis.train_stages import frcnn_train_batch
+
+    out = []
+    for seed in range(count):
+        images, boxes, labels, valid = frcnn_train_batch(seed, DM_BATCH, size, device=device)
+        batch = dict(images=images, gt_boxes=boxes, gt_labels=labels, gt_valid=valid)
+        if name.startswith("mask"):
+            r = torch.arange(size, device=device, dtype=torch.float32)
+            b = boxes[..., None]
+            batch["gt_masks"] = (((r >= b[:, :, 1]) & (r < b[:, :, 3]))[..., :, None]
+                                 & ((r >= b[:, :, 0]) & (r < b[:, :, 2]))[..., None, :]).float()
+        if name.startswith("keypoint"):
+            g = torch.Generator(device=device).manual_seed(10 + seed)
+            lo, hi = boxes[:, :, None, :2], boxes[:, :, None, 2:]
+            pts = lo + torch.rand(*boxes.shape[:2], 17, 2, generator=g, device=device) * (hi - lo)
+            vis = (torch.rand(*boxes.shape[:2], 17, 1, generator=g, device=device) < 0.8) * 2.0
+            batch["gt_keypoints"] = torch.cat([pts, vis], -1)
+            batch["gt_labels"] = torch.ones_like(labels)
+        out.append(batch)
+    return out
+
+
+def roi_forward_time(KR, maps, boxes, size, out_size):
+    """The RoIAlign forward kernel alone at one input: its time and its plain
+    version's (CUDA events), its bound (the level maps, boxes and levels
+    read once, the output written once; 4 multiply-adds a sample, 4 samples
+    and a divide a bin and channel) and its staged and direct RoIs."""
+    route = torch.empty(boxes.shape[:2], dtype=torch.uint8, device="cuda")
+    pooled = KR.multiscale_roi_align_cuda(maps, boxes, (size, size), out_size, route=route)
+    ms = cuda_ms(lambda: KR.multiscale_roi_align_cuda(maps, boxes, (size, size), out_size), 20)
+    plain_ms = cuda_ms(lambda: KR.multiscale_roi_align_reference(maps, boxes, (size, size),
+                                                                 out_size), 2)
+    moved = (pooled.numel() * pooled.element_size()
+             + sum(f.numel() * f.element_size() for f in maps) + boxes.numel() * 4
+             + boxes.numel())
+    ops = pooled.numel() * (8 * 2 * 2 + 1)
+    bound, bound_by = time_bound(moved, ops)
+    staged = (route % 2).bool()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, bytes=moved,
+                operations=ops, out_shape=list(pooled.shape), staged_rois=int(staged.sum()),
+                direct_rois=int((~staged).sum()))
+
+
+def branch_consistency(DM, phase, name, gpu, image):
+    """One image through the port on the GPU and on the CPU (same weights,
+    f32, TF32 off): the FPN maps and RPN outputs within FEAT_*; then the
+    rest of the path (proposal filter, box head, postprocess and the mask
+    or keypoint branch) on both devices from the GPU's maps and RPN
+    outputs: labels, valid flags and order identical, boxes within 1e-3,
+    scores within SCORE_ATOL, masks within RAW_*; keypoints within KP_ATOL
+    pixels, their scores within RAW_*."""
+    from object_detectors_tpu_torch.models.mask_rcnn import maskrcnn_inference
+    from object_detectors_tpu_torch.models.keypoint_rcnn import heatmaps_to_keypoints_exact
+    from object_detectors_tpu_torch.models.common import tf32_off
+
+    cpu = DM.ModelAdapter(name, gpu.model.cfg.num_classes, DM_IMG, device="cpu")
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    noop = lambda stage: None  # noqa: E731
+    outs, trunks = {}, {}
+    with tf32_off(), torch.no_grad():
+        for dev, ad in (("cuda", gpu), ("cpu", cpu)):
+            trunks[dev] = ad.model.eval()._trunk(image.to(dev), noop)
+        feats_g, obj_g, deltas_g, sizes, size = trunks["cuda"]
+        feats_c, obj_c, deltas_c, _, _ = trunks["cpu"]
+        pairs = [(f"P{i + 2}", g, c) for i, (g, c) in enumerate(zip(feats_g, feats_c))]
+        for what, g, c in pairs + [("objectness", obj_g, obj_c), ("deltas", deltas_g, deltas_c)]:
+            g = g.cpu()
+            emit(phase=phase, what=f"GPU vs CPU {what}", shape=list(c.shape),
+                 max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+            torch.testing.assert_close(g, c, rtol=FEAT_RTOL, atol=FEAT_ATOL)
+        for dev, ad in (("cuda", gpu), ("cpu", cpu)):
+            feats = [f.to(dev) for f in feats_g]
+            m = ad.model
+            det = m._detect(feats, obj_g.to(dev), deltas_g.to(dev), sizes, size, None, noop)
+            if name.startswith("mask"):
+                extra = (maskrcnn_inference(m.mask_logits(feats, det[0], size), det[2]),)
+            else:
+                extra = heatmaps_to_keypoints_exact(m.keypoint_logits(feats, det[0], size),
+                                                    det[0])
+            outs[dev] = [t.cpu() for t in (*det, *extra)]
+    g, c = outs["cuda"], outs["cpu"]
+    same = torch.equal(g[2], c[2]) and torch.equal(g[3], c[3])
+    fields = dict(valid=int(c[3].sum()), labels_and_valid_identical=same,
+                  boxes_max_abs_diff=(g[0] - c[0]).abs().max().item(),
+                  scores_max_abs_diff=(g[1] - c[1]).abs().max().item())
+    if name.startswith("mask"):
+        fields["masks_max_abs_diff"] = (g[4] - c[4]).abs().max().item()
+    else:
+        kp = (g[4] - c[4]).abs()
+        fields.update(keypoints_max_abs_diff=kp.max().item(),
+                      kp_scores_max_abs_diff=(g[5] - c[5]).abs().max().item())
+    emit(phase=phase, what="GPU vs CPU: the path from the GPU's maps and RPN outputs",
+         **fields)
+    check(same, f"{phase}: labels or order differ between the GPU and the CPU")
+    check(int(c[3].sum()) > 0, f"{phase}: no detection on the CPU")
+    torch.testing.assert_close(g[0], c[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(g[1], c[1], rtol=0, atol=SCORE_ATOL)
+    if name.startswith("mask"):
+        torch.testing.assert_close(g[4], c[4], rtol=RAW_RTOL, atol=RAW_ATOL)
+    else:
+        torch.testing.assert_close(g[4], c[4], rtol=0, atol=KP_ATOL)
+        torch.testing.assert_close(g[5], c[5], rtol=RAW_RTOL, atol=RAW_ATOL)
+
+
+def phase_rcnn_branch_eval(DM, KR, KN, name, phase):
+    """maskrcnn800 / kprcnn800: ``detect_with_masks`` (``detect_with_keypoints``)
+    at 800², batch 2, f32 (TF32 for cuDNN): 2 warm-up calls, timed calls
+    whose RoIAlign and NMS launches are counted (two RoIAlign a call: the 7x7
+    box pooler and the 14x14 branch pooler; two NMS: the RPN filter and the
+    postprocess); the 14x14 branch pooler held against its plain version at
+    its own maps and detections and timed there; for Keypoint R-CNN the
+    exact decode's time at its own logits; GPU vs CPU on one image."""
+    ad = dm_adapter(DM, name, DM_IMG)
+    images = [b["images"] for b in dm_batches(name, count=3)]
+    fn = ad.detect_with_masks if name.startswith("mask") else ad.detect_with_keypoints
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    dt, out, launches = timed_calls(fn, images, {"roi_align": KR, "nms": KN}, iters)
+    check(all(bool(torch.isfinite(t.float()).all()) for t in out), f"{phase} output not finite")
+    check(tuple(out[0].shape) == (DM_BATCH, 100, 4), f"{phase} boxes {tuple(out[0].shape)}")
+    for key, per in (("roi_align", 2), ("nms", 2)):
+        check(launches[key] == per * iters, f"{phase} launched the {key} kernel "
+                                            f"{launches[key]} times in {iters} calls")
+    emit(phase=phase, batch=DM_BATCH, img=DM_IMG, num_classes=ad.model.cfg.num_classes,
+         ms_per_batch=dt * 1e3, imgs_per_s=DM_BATCH / dt, tf32=tf32_state(),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         valid_detections=int(out[3].sum()), launches=launches,
+         launches_per_call={k: v / iters for k, v in launches.items()},
+         extra_shape=list(out[4].shape))
+
+    with watched(KR, "multiscale_roi_align_cuda") as calls:
+        fn(images[0])
+    (maps, boxes, size, out_size, ratio), _ = calls[1]
+    check(out_size == (14, 14) and ratio == 2, f"{phase} branch pooler at {out_size}")
+    err, staged = check_roi_align(KR, f"{phase} branch pooler, the path's own maps and "
+                                  f"detections", list(maps), boxes, size[0], out_size)
+    t = roi_forward_time(KR, list(maps), boxes, size[0], out_size)
+    emit(phase="kernel_time", name="roi_align", case=f"{phase} 14x14 branch pooler",
+         valid_boxes=int((boxes[..., 2] > boxes[..., 0]).sum()), library_ms=None, **t)
+    fields = dict(launches=launches, max_abs_err=err, ms_per_batch=dt * 1e3,
+                  roi_align_14x14={k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "staged_rois", "direct_rois")})
+    if name.startswith("keypoint"):
+        from object_detectors_tpu_torch.models.keypoint_rcnn import heatmaps_to_keypoints_exact
+
+        with torch.no_grad():
+            feats = ad.model._trunk(images[0], lambda stage: None)
+            logits = ad.model.keypoint_logits(feats[0], boxes, (DM_IMG, DM_IMG))
+        decode_ms = cuda_ms(lambda: heatmaps_to_keypoints_exact(logits, boxes), 3)
+        emit(phase=phase, what="heatmaps_to_keypoints_exact at the path's own logits",
+             logits=list(logits.shape), ms=decode_ms)
+        fields["heatmaps_to_keypoints_exact_ms"] = decode_ms
+    branch_consistency(DM, phase, name, ad, images[0][:1])
+    return fields
+
+
+def dm_train_state(DM, trainer, name, size):
+    """The adapter and its train state with detection_main's optimizer (as
+    frcnn_train_setup: SGD 0.0025, momentum 0.9, weight decay 1e-4, the
+    multistep decay at epochs 16 and 22, warmup over 1000 steps from
+    1/1000)."""
+    from object_detectors_tpu_torch.train import optim
+
+    ad = dm_adapter(DM, name, size)
+    tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 0.0025, 1e-4, 0.9),
+                              optim.SchedulerConfig("multistep", milestones=(16, 22),
+                                                    warmup_steps=1000,
+                                                    warmup_factor=1.0 / 1000), 1000)
+    return ad, trainer.create_detection_train_state(ad, tx)
+
+
+def phase_dm_train(DM, KR, KB, KN, name, phase, size=DM_IMG, per_step=(0, 0, 0)):
+    """``detection_train_step`` of ``name`` at ``size``², batch 2, f32:
+    2 warm-up steps, timed steps whose RoIAlign forward, backward and NMS
+    launches are counted (``per_step`` each), finite losses, peak memory;
+    for Mask and Keypoint R-CNN one more step whose 14x14 RoIAlign backward
+    is held against its plain version at its own cotangent and RoIs and
+    timed there; the tiny step of ``tiny_steps.adapter_step_on_both`` on
+    the GPU against the CPU."""
+    from object_detectors_tpu_torch.train import tiny_steps as TS
+    from object_detectors_tpu_torch.train import trainer
+
+    ad, state = dm_train_state(DM, trainer, name, size)
+    batches = dm_batches(name, size)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for i in range(2):
+        _, total, _ = trainer.detection_train_step(state, ad, batches[i % 3], generator=gen)
+    float(total)
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    KR.launches = KB.launches = KN.launches = 0
+    t0 = time.perf_counter()
+    for i in range(iters):
+        _, total, losses = trainer.detection_train_step(state, ad, batches[i % 3], generator=gen)
+    last = float(total)
+    dt = (time.perf_counter() - t0) / iters
+    launches = {"roi_align": KR.launches, "roi_align_bwd": KB.launches, "nms": KN.launches}
+    losses = {k: v.item() for k, v in losses.items()}
+    emit(phase=phase, batch=DM_BATCH, img=size, ms_per_step=dt * 1e3,
+         imgs_per_s=DM_BATCH / dt, loss=last, losses=losses, tf32=tf32_state(),
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         launches_per_step={k: v / iters for k, v in launches.items()})
+    check(math.isfinite(last) and all(math.isfinite(v) for v in losses.values()),
+          f"{phase} losses are not finite")
+    for key, per in zip(("roi_align", "roi_align_bwd", "nms"), per_step):
+        check(launches[key] == per * iters, f"{phase} launched the {key} kernel "
+                                            f"{launches[key]} times in {iters} steps")
+    fields = dict(ms_per_step=dt * 1e3, launches=launches, max_abs_err=0.0)
+    if name in DM.TWO_STAGE:
+        with watched(KB, "multiscale_roi_align_backward_cuda") as calls:
+            trainer.detection_train_step(state, ad, batches[0], generator=gen)
+        check(sorted(c[0][4] for c in calls) == [(7, 7), (14, 14)],
+              f"{phase}'s RoIAlign backward at {[c[0][4] for c in calls]}")
+        cot, boxes, shapes, bsize, bout, _, _ = next(a for a, _ in calls if a[4] == (14, 14))
+        check(cot.dtype == torch.float32 and tuple(cot.shape) == (DM_BATCH, 512, 14, 14, 256),
+              f"{phase} 14x14 cotangent {tuple(cot.shape)} {cot.dtype}")
+        fields["max_abs_err"] = check_roi_backward(
+            KR, KB, f"{phase} 14x14 branch, a step's own cotangent and RoIs", shapes, boxes,
+            cot, bsize[0])
+        t = roi_backward_time(KR, KB, shapes, boxes, cot, bsize[0])
+        emit(phase="kernel_time", name="roi_align_backward", dtype=str(cot.dtype),
+             case=f"{phase} 14x14 branch, a step's own cotangent and RoIs",
+             cotangent_shape=list(cot.shape), library_ms=None, **t)
+        fields["roi_align_bwd_14x14"] = {k: t[k] for k in (
+            "ms", "kernel_only_ms", "zeroing_ms", "bound_ms", "bound_by", "staged_rois",
+            "direct_rois")}
+
+    models, before, tiny, tiny_launches = TS.adapter_step_on_both(name)
+    for k, v in tiny["cpu"].items():
+        emit(phase=phase, what=f"tiny {name}, GPU vs CPU {k}", gpu=tiny["cuda"][k].item(),
+             cpu=v.item())
+        torch.testing.assert_close(tiny["cuda"][k].cpu(), v, rtol=TS.FRCNN_LOSS_RTOL, atol=1e-6)
+    want = (2, 2, 1) if name in DM.TWO_STAGE else (0, 0, 0)
+    check(tiny_launches == {"cpu": (0, 0, 0), "cuda": want},
+          f"the tiny {name} step's RoIAlign forward, backward and NMS launches: "
+          f"{tiny_launches}")
+    check_update_gap(TS, phase, f"tiny {name}", models, before,
+                     worst_share=TS.FRCNN_UPDATE_SHARE)
+    return fields
+
+
+def phase_ssd300(DM, KN):
+    """ssd300: ``detect`` at 300², batch 2, f32: timed calls whose NMS
+    launches are counted (one a call, the postprocess's class-aware NMS
+    over the 1200-candidate cap, 200 kept); the NMS kernel held against its
+    plain version at that call's inputs (identical) and timed there; on one
+    image the raw outputs GPU vs CPU within FEAT_* and the postprocess on
+    the GPU's outputs on both devices: labels, valid flags and order
+    identical, boxes within 1e-3, scores within SCORE_ATOL."""
+    from object_detectors_tpu_torch.models import ssd as SSD
+    from object_detectors_tpu_torch.models.common import tf32_off
+
+    ad = dm_adapter(DM, "ssd300_vgg16", SSD_IMG)
+    images = [b["images"] for b in dm_batches("ssd300_vgg16", SSD_IMG)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    dt, out, launches = timed_calls(ad.detect, images, {"nms": KN}, iters)
+    check(launches["nms"] == iters, f"ssd300 launched the NMS kernel {launches['nms']} times "
+                                    f"in {iters} calls")
+    check(tuple(out[0].shape) == (DM_BATCH, 200, 4) and bool(torch.isfinite(out[0]).all()),
+          "ssd300 output")
+    emit(phase="ssd300", batch=DM_BATCH, img=SSD_IMG, num_classes=91, ms_per_batch=dt * 1e3,
+         imgs_per_s=DM_BATCH / dt, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         valid_detections=int(out[3].sum()), launches=launches)
+    with watched(KN, "greedy_nms_cuda") as calls:
+        ad.detect(images[0])
+    (b, sc, thr, k, valid), _ = calls[0]
+    check(tuple(sc.shape) == (DM_BATCH, 1200) and k == 200, f"ssd300 NMS at {tuple(sc.shape)}")
+    check_nms(KN, "ssd300 postprocess, the path's own candidates", b, sc, thr, k, valid)
+    t = nms_kernel_time(KN, b, sc, thr, k, valid)
+    emit(phase="kernel_time", name="nms", case="ssd300 postprocess", groups=sc.shape[0],
+         n=sc.shape[1], max_output=k, iou_threshold=thr, library_ms=None, **t)
+
+    cpu = DM.ModelAdapter("ssd300_vgg16", 91, SSD_IMG, device="cpu")
+    cpu.model.load_state_dict(ad.model.state_dict())
+    with tf32_off(), torch.no_grad():
+        raw = {dev: a.model.eval()(images[0][:1].to(dev)) for dev, a in (("cuda", ad),
+                                                                           ("cpu", cpu))}
+        for i, what in enumerate(("cls_logits", "bbox_reg")):
+            g, c = raw["cuda"][i].cpu(), raw["cpu"][i]
+            emit(phase="ssd300", what=f"GPU vs CPU {what}", shape=list(c.shape),
+                 max_abs_err=(g - c).abs().max().item(), max_abs_ref=c.abs().max().item())
+            torch.testing.assert_close(g, c, rtol=FEAT_RTOL, atol=FEAT_ATOL)
+        cls, reg, sizes = raw["cuda"]
+        post = {}
+        for dev, a in (("cuda", ad), ("cpu", cpu)):
+            post[dev] = [x.cpu() for x in SSD.ssd_postprocess(
+                cls.to(dev), reg.to(dev), a._ssd_anchors(sizes), (SSD_IMG, SSD_IMG), a.cfg)]
+    g, c = post["cuda"], post["cpu"]
+    same = torch.equal(g[2], c[2]) and torch.equal(g[3], c[3])
+    emit(phase="ssd300", what="GPU vs CPU postprocess on the GPU's outputs", valid=int(c[3].sum()),
+         labels_and_valid_identical=same, boxes_max_abs_diff=(g[0] - c[0]).abs().max().item(),
+         scores_max_abs_diff=(g[1] - c[1]).abs().max().item())
+    check(same and int(c[3].sum()) > 0, "ssd300 postprocess labels or order differ between "
+                                        "the GPU and the CPU, or nothing was kept")
+    torch.testing.assert_close(g[0], c[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(g[1], c[1], rtol=0, atol=SCORE_ATOL)
+    return dict(launches=launches["nms"], ms_per_batch=dt * 1e3,
+                nms={key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kept")})
+
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -1951,9 +2310,32 @@ def main() -> int:
     planted_nms = phase_eval_planted(N, KN, P)
     phase_ingest(P)
 
-    roi["max_abs_err"] = max(roi["max_abs_err"], roi_err)
+    from object_detectors_tpu_torch import detection_main as DM
+
+    dm = {"maskrcnn800": phase_rcnn_branch_eval(DM, KR, KN, "maskrcnn_resnet50_fpn",
+                                                "maskrcnn800"),
+          "maskrcnn_train800": phase_dm_train(DM, KR, KB, KN, "maskrcnn_resnet50_fpn",
+                                              "maskrcnn_train800", per_step=(2, 2, 1)),
+          "kprcnn800": phase_rcnn_branch_eval(DM, KR, KN, "keypointrcnn_resnet50_fpn",
+                                              "kprcnn800"),
+          "kprcnn_train800": phase_dm_train(DM, KR, KB, KN, "keypointrcnn_resnet50_fpn",
+                                            "kprcnn_train800", per_step=(2, 2, 1)),
+          "ssd300": phase_ssd300(DM, KN),
+          "ssd_train300": phase_dm_train(DM, KR, KB, KN, "ssd300_vgg16", "ssd_train300",
+                                         size=SSD_IMG),
+          "retinanet_train800": phase_dm_train(DM, KR, KB, KN, "retinanet_resnet50_fpn",
+                                               "retinanet_train800")}
+    emit(phase="detection_main", ms={k: v.get("ms_per_batch", v.get("ms_per_step"))
+                                     for k, v in dm.items()})
+
+    branches = ("maskrcnn800", "kprcnn800")
+    trains = ("maskrcnn_train800", "kprcnn_train800")
+    roi["max_abs_err"] = max(roi["max_abs_err"], roi_err,
+                             *(dm[p]["max_abs_err"] for p in branches))
     roi["launches_by_path"] = {"frcnn640": roi["launches"],
-                               "frcnn_train800": frcnn_train["launches"]["roi_align"]}
+                               "frcnn_train800": frcnn_train["launches"]["roi_align"],
+                               **{p: dm[p]["launches"]["roi_align"] for p in branches + trains}}
+    roi["branch_14x14"] = {p: dm[p]["roi_align_14x14"] for p in branches}
     roi["launches"] = sum(roi["launches_by_path"].values())
     retina_pre = sum(retina_launches[mode]["preprocess"] for mode in retina_launches)
     retina_nms_launches = sum(retina_launches[mode]["nms"] for mode in retina_launches)
@@ -1963,11 +2345,14 @@ def main() -> int:
                                "frcnn640": frcnn_launches["nms"],
                                "retinanet640": retina_nms_launches,
                                "frcnn_train800": frcnn_train["launches"]["nms"],
-                               "protocol": protocol_nms, "eval_planted": planted_nms}
+                               "protocol": protocol_nms, "eval_planted": planted_nms,
+                               **{p: dm[p]["launches"]["nms"] for p in branches + trains},
+                               "ssd300": dm["ssd300"]["launches"]}
     nms["launches"] = sum(nms["launches_by_path"].values())
     nms["frcnn_train800_rpn_shape"] = {key: frcnn_train["nms"][key] for key in MEASURED_NMS
                                        if key in frcnn_train["nms"]}
     nms["retinanet_postprocess_shape"] = retina_nms
+    nms["ssd300_postprocess_shape"] = dm["ssd300"]["nms"]
     nms["nms_majority_calls"] = majority
     kernels = [{
         "name": "preprocess_u8_bf16", "route": "cuda",
@@ -2017,15 +2402,18 @@ def main() -> int:
         "name": "multiscale_roi_align_bwd", "route": "cuda",
         "source": "object_detectors_tpu_torch/csrc/roi_align.cu",
         "replaces": "object_detectors_tpu/ops/roi_align.py:381 (XLA VJP, no pallas_call)",
-        "launches": frcnn_train["launches"]["roi_align_bwd"],
-        "launches_by_path": {"frcnn_train800": frcnn_train["launches"]["roi_align_bwd"]},
-        "max_abs_err": bwd_err,
+        "launches": (frcnn_train["launches"]["roi_align_bwd"]
+                     + sum(dm[p]["launches"]["roi_align_bwd"] for p in trains)),
+        "launches_by_path": {"frcnn_train800": frcnn_train["launches"]["roi_align_bwd"],
+                             **{p: dm[p]["launches"]["roi_align_bwd"] for p in trains}},
+        "max_abs_err": max(bwd_err, *(dm[p]["max_abs_err"] for p in trains)),
         **bwd_timing["torch.float32"],  # Faster R-CNN trains in f32
         "bf16": bwd_timing["torch.bfloat16"],
         "frcnn_train800_own_inputs": {
             dtype: {key: t[key] for key in ("ms", "zeroing_ms", "kernel_only_ms", "device_ms",
                                             "bound_ms", "staged_rois", "direct_rois")}
             for dtype, t in frcnn_train["roi_align_bwd"].items()},
+        "branch_14x14_own_inputs": {p: dm[p]["roi_align_bwd_14x14"] for p in trains},
         "library_ms": None,  # no single PyTorch call computes this function
     }]
     print(card, flush=True)

@@ -1,10 +1,12 @@
 """Anchor generation (copied from the JAX package's ``models/anchors.py``;
 numpy only, torchvision AnchorGenerator semantics): zero-centered cell
 anchors per level from sizes x aspect ratios (aspect = h/w, rounded),
-shifted over the grid by integer strides and concatenated per level."""
+shifted over the grid by integer strides and concatenated per level; and
+SSD's default boxes (torchvision DefaultBoxGenerator)."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -84,3 +86,40 @@ def retinanet_anchor_config():
     )
     aspect_ratios = ((0.5, 1.0, 2.0),) * 5
     return sizes, aspect_ratios
+
+
+# ssd300_vgg16's default boxes (torchvision ssd300_vgg16's DefaultBoxGenerator)
+SSD_ASPECT_RATIOS = ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,))
+SSD_SCALES = (0.07, 0.15, 0.33, 0.51, 0.69, 0.87, 1.05)
+SSD_STEPS = (8, 16, 32, 64, 100, 300)
+
+
+def ssd_default_boxes(image_size: tuple[int, int],
+                      grid_sizes: Sequence[tuple[int, int]]) -> np.ndarray:
+    """ssd300_vgg16's default boxes in xyxy pixels [sum_l H*W*A_l, 4]
+    (anchor_utils.py:160-278), the (w, h) pairs clipped to [0, 1]."""
+    boxes = []
+    for k, (gh, gw) in enumerate(grid_sizes):
+        s_k = SSD_SCALES[k]
+        s_prime = math.sqrt(SSD_SCALES[k] * SSD_SCALES[k + 1])
+        pairs = [[s_k, s_k], [s_prime, s_prime]]
+        for ar in SSD_ASPECT_RATIOS[k]:
+            sq = math.sqrt(ar)
+            pairs.extend([[s_k * sq, s_k / sq], [s_k / sq, s_k * sq]])
+        wh = np.clip(np.asarray(pairs, np.float32), 0, 1)
+        x_f = image_size[1] / SSD_STEPS[k]
+        y_f = image_size[0] / SSD_STEPS[k]
+        shifts_x = (np.arange(gw, dtype=np.float32) + 0.5) / x_f
+        shifts_y = (np.arange(gh, dtype=np.float32) + 0.5) / y_f
+        sy, sx = np.meshgrid(shifts_y, shifts_x, indexing="ij")
+        centers = np.stack([sx.reshape(-1), sy.reshape(-1)], 1)  # [HW, 2]
+        a = wh.shape[0]
+        cxy = np.repeat(centers, a, axis=0)          # [HW*A, 2]
+        whr = np.tile(wh, (gh * gw, 1))              # [HW*A, 2]
+        cxywh = np.concatenate([cxy, whr], axis=1)
+        xyxy = np.concatenate([cxywh[:, :2] - 0.5 * cxywh[:, 2:],
+                               cxywh[:, :2] + 0.5 * cxywh[:, 2:]], axis=1)
+        xyxy[:, 0::2] *= image_size[1]
+        xyxy[:, 1::2] *= image_size[0]
+        boxes.append(xyxy)
+    return np.concatenate(boxes, axis=0).astype(np.float32)

@@ -8,9 +8,23 @@ statistics, as the Flax modules do with ``param_dtype=float32``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Full f32 matmuls and convolutions on the GPU (TF32 off for cuBLAS and
+    cuDNN) inside the block, the earlier settings restored after it."""
+    allow = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
 
 
 class ConvBN(nn.Module):
@@ -56,6 +70,12 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """Run ``conv`` (float32 parameters) in the dtype of its input."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding)
+
+
+def conv_transpose2d(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
+    """Run ``conv`` (float32 parameters) in the dtype of its input."""
+    return F.conv_transpose2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride,
+                              conv.padding)
 
 
 def linear(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:

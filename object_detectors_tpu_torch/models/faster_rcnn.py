@@ -85,46 +85,64 @@ class FasterRCNN(nn.Module):
         u_neg) [B, P + M]}``. ``train`` needs the module in training mode:
         in eval mode the backbone may take the fused forward-only blocks,
         which pass no gradient."""
-        if train and (gt_boxes is None or gt_labels is None or gt_valid is None):
-            raise ValueError("train=True needs gt_boxes, gt_labels and gt_valid")
+        self._check_train(train, gt_boxes, gt_labels, gt_valid)
+        mark = on_stage or (lambda name: None)
+        feats, objectness, deltas, level_sizes, size = self._trunk(images, mark)
+        if train:
+            return self._losses(feats, objectness, deltas, level_sizes, size, gt_boxes,
+                                gt_labels, gt_valid, tfidf, class_weights, generator,
+                                uniforms)[0]
+        return self._detect(feats, objectness, deltas, level_sizes, size, tfidf, mark)
+
+    def _check_train(self, train: bool, *gt):
+        if train and any(t is None for t in gt):
+            raise ValueError("train=True needs the ground truth (gt_boxes, gt_labels, gt_valid "
+                             "and the targets of a mask or keypoint branch)")
         if train and not self.training:
             raise ValueError("train=True needs the module in training mode (model.train())")
-        mark = on_stage or (lambda name: None)
-        cfg = self.cfg
+
+    def _trunk(self, images: torch.Tensor, mark):
+        """Backbone + FPN and the RPN head: (level maps, objectness f32,
+        deltas f32, anchors per level, image size)."""
         _, h, w, _ = images.shape
         x = images.permute(0, 3, 1, 2).to(self.dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        feats = self.backbone(x)
+        feats = self.backbone(x.contiguous(memory_format=torch.channels_last))
         mark("backbone+FPN")
         objectness, deltas, level_sizes = self.rpn_head(feats)
         mark("RPN head")
-        if train:
-            return self._losses(feats, objectness.float(), deltas.float(), level_sizes, (h, w),
-                                gt_boxes, gt_labels, gt_valid, tfidf, class_weights, generator,
-                                uniforms or {})
-        boxes, _, valid = filter_proposals(self.decode(feats, deltas, (h, w)),
-                                           objectness.float(), level_sizes, (h, w), cfg.rpn)
+        return feats, objectness.float(), deltas.float(), level_sizes, (h, w)
+
+    def _detect(self, feats, objectness, deltas, level_sizes, image_size, tfidf, mark):
+        """Proposal filter, pooler, box head and postprocess -> (boxes,
+        scores, labels, valid)."""
+        cfg = self.cfg
+        boxes, _, valid = filter_proposals(self.decode(feats, deltas, image_size), objectness,
+                                           level_sizes, image_size, cfg.rpn)
         mark("proposal filter")
-        pooled = pool_multiscale(feats[:4], boxes, (h, w), cfg.roi.pool_size).to(self.dtype)
+        pooled = pool_multiscale(feats[:4], boxes, image_size, cfg.roi.pool_size).to(self.dtype)
         mark("pooler")
         class_logits, box_regression = self.box_predictor(self.box_head(pooled))
         mark("box head")
         out = postprocess_detections(class_logits.float(), box_regression.float(), boxes,
-                                     valid, (h, w), cfg.roi,
+                                     valid, image_size, cfg.roi,
                                      tfidf_post=1.0 if tfidf is None else tfidf)
         mark("postprocess")
         return out
 
     def _losses(self, feats, objectness, deltas, level_sizes, image_size, gt_boxes, gt_labels,
-                gt_valid, tfidf, class_weights, generator, uniforms) -> dict:
+                gt_valid, tfidf, class_weights, generator, uniforms):
+        """The four losses, and the sampled slots (boxes, positive, matched
+        GT index) [B, S] that a mask or keypoint branch trains on."""
         cfg = self.cfg
+        uniforms = uniforms or {}
         anchors = self.anchors(feats, image_size, deltas.device)
+        # the proposals take no gradient (the JAX stop_gradient)
         proposals = decode_boxes(deltas.detach(), anchors[None], cfg.rpn.box_weights)
         prop_boxes, _, prop_valid = filter_proposals(proposals, objectness, level_sizes,
                                                      image_size, cfg.rpn, training=True)
         rpn_losses = rpn_loss(objectness, deltas, anchors, gt_boxes, gt_valid, cfg.rpn,
                               uniforms.get("rpn"), generator)
-        s_boxes, s_labels, reg_targets, _, s_sampled, _ = select_training_samples(
+        s_boxes, s_labels, reg_targets, s_pos, s_sampled, s_matched = select_training_samples(
             prop_boxes, prop_valid, gt_boxes, gt_labels, gt_valid, cfg.roi,
             uniforms.get("roi"), generator)
         pooled = pool_multiscale(feats[:4], s_boxes, image_size, cfg.roi.pool_size)
@@ -132,7 +150,7 @@ class FasterRCNN(nn.Module):
         scale = training_tfidf_scale(gt_labels, gt_valid, cfg.roi, tfidf)
         det_losses = fastrcnn_loss(class_logits.float() * scale, box_regression.float(),
                                    s_labels, reg_targets, s_sampled, cfg.roi, class_weights)
-        return {**det_losses, **rpn_losses}
+        return {**det_losses, **rpn_losses}, (s_boxes, s_pos, s_matched)
 
 
 @torch.no_grad()

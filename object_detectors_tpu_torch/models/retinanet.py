@@ -1,5 +1,5 @@
-"""RetinaNet with a ResNet-FPN backbone, inference only (port of the JAX
-package's ``models/retinanet.py``, torchvision RetinaNet semantics).
+"""RetinaNet with a ResNet-FPN backbone (port of the JAX package's
+``models/retinanet.py``, torchvision RetinaNet semantics).
 
 Backbone: ResNet (frozen BN, the ``fused`` knob of ``models/resnet.py``) ->
 FPN 256 over C3..C5 with P6/P7 from P5. Head: shared 4 x (3x3 conv + ReLU)
@@ -25,18 +25,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_detectors_tpu_torch.data.idf import minibatch_idf
 from object_detectors_tpu_torch.models.common import conv2d
 from object_detectors_tpu_torch.models.resnet import BackboneWithFPN, ResNet
-from object_detectors_tpu_torch.ops.boxes import clip_boxes_to_image, decode_boxes
+from object_detectors_tpu_torch.ops import losses as L
+from object_detectors_tpu_torch.ops import matcher as M
+from object_detectors_tpu_torch.ops.boxes import (
+    clip_boxes_to_image, decode_boxes, encode_boxes, pairwise_iou,
+)
 from object_detectors_tpu_torch.ops.nms import batched_nms, gather_rows
 from object_detectors_tpu_torch.ops.selection import radix_topk, radix_topk_multi
 
 
 @dataclasses.dataclass(frozen=True)
 class RetinaNetConfig:
-    """The inference settings of the JAX ``RetinaNetConfig``."""
+    """The JAX ``RetinaNetConfig``."""
 
     num_classes: int = 91
+    fg_iou_thresh: float = 0.5
+    bg_iou_thresh: float = 0.4
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     detections_per_img: int = 300
@@ -44,6 +51,12 @@ class RetinaNetConfig:
     # global pre-NMS cap over the concatenated levels; 0 disables
     pre_nms_candidates: int = 2000
     box_weights: tuple = (1.0, 1.0, 1.0, 1.0)
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    # training logit scale recomputed from the minibatch, log((B+1)/(df+1))+1,
+    # optionally Lp-normalized (p = tfidf_norm, 0 = off)
+    tfidf_mini_batch: bool = False
+    tfidf_norm: int = 0
 
 
 class RetinaNetHead(nn.Module):
@@ -87,8 +100,13 @@ class RetinaNet(nn.Module):
                                         extra_blocks="p6p7", returned_layers=(2, 3, 4))
         self.head = RetinaNetHead(num_classes)
 
-    def forward(self, images: torch.Tensor, on_stage=None):
-        """``on_stage(name)``, when given, is called after each stage."""
+    def forward(self, images: torch.Tensor, train: bool = False, on_stage=None):
+        """``on_stage(name)``, when given, is called after each stage.
+        ``train`` (a forward for the loss) needs the module in training
+        mode: in eval mode the backbone may take the fused forward-only
+        blocks, which pass no gradient."""
+        if train and not self.training:
+            raise ValueError("train=True needs the module in training mode (model.train())")
         mark = on_stage or (lambda name: None)
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         feats = self.backbone(x.contiguous(memory_format=torch.channels_last))
@@ -115,6 +133,40 @@ def init_retinanet_(model: RetinaNet, seed: int = 0) -> RetinaNet:
     p = model.head.prior_probability
     model.head.cls_logits.bias.fill_(-math.log((1 - p) / p))
     return model
+
+
+def _match_per_image(gt_boxes: torch.Tensor, gt_valid: torch.Tensor, anchors: torch.Tensor,
+                     cfg: RetinaNetConfig) -> torch.Tensor:
+    """GT [..., M, 4] with validity [..., M] against anchors [A, 4] ->
+    matches [..., A] (a GT index, -1 below, -2 between the thresholds)."""
+    return M.match(pairwise_iou(gt_boxes, anchors), gt_valid, cfg.fg_iou_thresh,
+                   cfg.bg_iou_thresh, allow_low_quality_matches=True)
+
+
+def retinanet_loss(cls_logits: torch.Tensor, bbox_reg: torch.Tensor, anchors: torch.Tensor,
+                   gt_boxes: torch.Tensor, gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                   cfg: RetinaNetConfig, tfidf=1.0) -> dict:
+    """cls_logits [B, A, K] f32, bbox_reg [B, A, 4], anchors [A, 4], GT boxes
+    [B, M, 4] xyxy, labels [B, M] (0-based), valid [B, M] ->
+    dict(classification, bbox_regression)."""
+    k = cls_logits.shape[-1]
+    if cfg.tfidf_mini_batch:
+        tfidf = minibatch_idf(gt_labels, gt_valid, k)
+        if cfg.tfidf_norm:
+            tfidf = tfidf / torch.linalg.vector_norm(tfidf, ord=cfg.tfidf_norm)
+    matched = _match_per_image(gt_boxes, gt_valid, anchors, cfg)  # [B, A]
+    fg = matched >= 0
+    valid = matched != M.BETWEEN_THRESHOLDS
+    num_fg = fg.sum(1).clamp(min=1).to(cls_logits.dtype)
+    midx = matched.clamp(min=0)
+    target = L.one_hot(torch.gather(gt_labels.long(), 1, midx), k, cls_logits.dtype)
+    target = target * fg[..., None]
+    cls_el = L.sigmoid_focal_loss(cls_logits * tfidf, target, cfg.focal_alpha, cfg.focal_gamma)
+    classification = ((cls_el * valid[..., None]).sum((1, 2)) / num_fg).mean()
+    reg_target = encode_boxes(gather_rows(gt_boxes, midx), anchors[None], cfg.box_weights)
+    reg_el = (bbox_reg - reg_target).abs().sum(-1)
+    bbox_regression = ((reg_el * fg).sum(1) / num_fg).mean()
+    return {"classification": classification, "bbox_regression": bbox_regression}
 
 
 def _select_fused(logits, level_sizes, cfg: RetinaNetConfig, tfidf, static: float | None):

@@ -2,7 +2,8 @@
 package's ``ops/matcher.py``, torchvision Matcher semantics): three-way
 thresholding (a GT index / BETWEEN_THRESHOLDS / BELOW_LOW_THRESHOLD) with
 the optional low-quality recovery (every GT keeps its best predictions,
-ties included), and YOLO's best-prior assignment. GT is padded to a fixed M
+ties included), SSD's single-threshold match with each GT's forced best
+prediction, and YOLO's best-prior assignment. GT is padded to a fixed M
 with a validity mask, so a match is one [..., M, N] reduction."""
 
 from __future__ import annotations
@@ -34,6 +35,21 @@ def match(match_quality: torch.Tensor, gt_valid: torch.Tensor, high_threshold: f
                             & torch.isfinite(highest_per_gt)).any(-2)
         matches = torch.where(best_for_some_gt, all_matches, matches)
     return matches
+
+
+def ssd_match(match_quality: torch.Tensor, gt_valid: torch.Tensor,
+              threshold: float = 0.5) -> torch.Tensor:
+    """SSDMatcher: ``match`` at one threshold, then each valid GT claims
+    its best prediction (the first of equal maxima). Where two GTs claim
+    the same prediction the higher GT index wins (a scatter-max, as the
+    JAX ``ssd_match``). Quality [..., M, N] -> [..., N] int64."""
+    matches = match(match_quality, gt_valid, threshold, threshold, False)
+    quality = torch.where(gt_valid[..., None], match_quality, float("-inf"))
+    best_pred = quality.argmax(-1)  # [..., M]
+    ids = torch.arange(match_quality.shape[-2], device=matches.device).expand_as(best_pred)
+    claim = torch.full_like(matches, -10_000_000)
+    claim.scatter_reduce_(-1, best_pred, torch.where(gt_valid, ids, -10_000_000), "amax")
+    return torch.where(claim >= 0, claim, matches)
 
 
 def yolo_best_prior_match(gt_boxes: torch.Tensor, priors: torch.Tensor,

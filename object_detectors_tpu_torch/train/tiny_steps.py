@@ -15,6 +15,23 @@ each tensor holds within ``YOLO_F64_UPDATE_SHARE`` of that tensor's largest
 update (1.3e-7 seen there). Faster R-CNN's frozen batch norms do not spread
 a flip, so each of its f32 tensors holds within ``FRCNN_UPDATE_SHARE``
 (0.4 % seen). A wrong gradient is off by the size of the update itself.
+
+``adapter_step_on_both`` takes one ``detection_train_step`` of a tiny model
+of each further ``detection_main`` architecture (Mask and Keypoint R-CNN,
+RetinaNet, SSD300) and is held to the Faster R-CNN tolerances: the
+RoIAlign backward's atomics in the two-stage models, and no batch norm that
+spreads a flip in any of them.
+
+A tensor whose gradient is zero in exact arithmetic (Keypoint R-CNN's
+keypoint logits' bias adds one constant to a whole heatmap, which the
+softmax loss does not see) updates by rounding alone on each device. So
+``update_gap`` takes each tensor's difference over its own largest update
+or NULL_UPDATE_SHARE of the largest update of any tensor, whichever is
+larger. That share lies between such a rounding update (2.6e-8 of the
+largest, that bias on an H100) and the smallest update of a tensor with a
+gradient in these steps (4.2e-6 of the largest, the tiny Faster R-CNN's
+``backbone.fpn.layer3.weight`` on the CPU), so it holds the others to their
+own updates.
 """
 
 from __future__ import annotations
@@ -24,23 +41,31 @@ from typing import Callable
 import numpy as np
 import torch
 
+from object_detectors_tpu_torch.models.common import tf32_off
+
 TRAIN_LOSS_RTOL, FRCNN_LOSS_RTOL = 1e-4, 1e-3
 YOLO_F32_UPDATE_NORM, YOLO_F64_UPDATE_SHARE, FRCNN_UPDATE_SHARE = 0.05, 1e-5, 0.05
+NULL_UPDATE_SHARE = 3e-6
 
 
 def update_gap(models: dict, before: dict) -> dict:
     """The GPU's parameter updates against the CPU's. ``worst_share``: the
-    largest difference in a tensor over that tensor's largest CPU update,
-    the worst tensor's (named by ``at``). ``norm_share``: the norm of all
-    differences over the norm of all updates."""
+    largest difference in a tensor over the larger of that tensor's largest
+    CPU update and NULL_UPDATE_SHARE of the largest CPU update of any
+    tensor, the worst tensor's (named by ``at``). ``norm_share``: the norm
+    of all differences over the norm of all updates."""
     gpu = dict(models["cuda"].named_parameters())
-    worst, at, num, den = 0.0, None, 0.0, 0.0
+    diffs, num, den = {}, 0.0, 0.0
     for name, p in models["cpu"].named_parameters():
         upd = (p.detach() - before[name]).double()
         diff = (gpu[name].detach().cpu() - before[name]).double() - upd
         num += float((diff ** 2).sum())
         den += float((upd ** 2).sum())
-        share = diff.abs().max().item() / max(upd.abs().max().item(), 1e-30)
+        diffs[name] = diff.abs().max().item(), upd.abs().max().item()
+    floor = NULL_UPDATE_SHARE * max(u for _, u in diffs.values())
+    worst, at = 0.0, None
+    for name, (d, u) in diffs.items():
+        share = d / max(u, floor, 1e-30)
         if share > worst:
             worst, at = share, name
     return {"worst_share": worst, "at": at, "norm_share": (num / max(den, 1e-300)) ** 0.5}
@@ -50,16 +75,12 @@ def on_both(make: Callable[[], torch.nn.Module], step: Callable, dtype=torch.flo
     """``step(model, device)`` on a fresh ``make()`` on the CPU and on the
     GPU in ``dtype``, with TF32 off: (models, the parameters before the
     step, the step's outputs), each keyed by device."""
-    allow = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        models, outs = {}, {}
+    models, outs = {}, {}
+    with tf32_off():
         for dev in ("cpu", "cuda"):
             models[dev] = make().to(dev, dtype)
             before = {k: p.detach().cpu().clone() for k, p in models[dev].named_parameters()}
             outs[dev] = step(models[dev], dev)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
     return models, before, outs
 
 
@@ -155,3 +176,70 @@ def frcnn_step_on_both(ingest: bool = False):
 
     models, before, losses = on_both(lambda: F.init_frcnn_(F.FasterRCNN(cfg), seed=3), step)
     return models, before, losses, launches
+
+
+def adapter_batch(name: str, size: int, seed: int = 4) -> dict:
+    """A seeded batch for a ``detection_main`` architecture as CPU tensors:
+    two normalized images, 3 GT slots (the second image one short), 1-based
+    labels, and the masks or 17 keypoints a slot that Mask and Keypoint
+    R-CNN train on."""
+    rng = np.random.RandomState(seed)
+    m = 3
+    xy = rng.rand(2, m, 2) * size * 0.6
+    boxes = np.concatenate([xy, xy + size * 0.1 + rng.rand(2, m, 2) * size * 0.3], -1)
+    batch = {"images": rng.randn(2, size, size, 3).astype(np.float32),
+             "gt_boxes": boxes.astype(np.float32),
+             "gt_labels": rng.randint(1, 2 if name.startswith("keypoint") else 5, (2, m)),
+             "gt_valid": np.array([[True] * m, [True] * (m - 1) + [False]])}
+    if name.startswith("mask"):
+        ys, xs = np.mgrid[:size, :size]
+        b = boxes[:, :, :, None, None]
+        batch["gt_masks"] = ((xs >= b[:, :, 0]) & (xs < b[:, :, 2]) & (ys >= b[:, :, 1])
+                             & (ys < b[:, :, 3])).astype(np.float32)
+    if name.startswith("keypoint"):
+        lo, hi = boxes[:, :, None, :2], boxes[:, :, None, 2:]
+        batch["gt_keypoints"] = np.concatenate(
+            [lo + rng.rand(2, m, 17, 2) * (hi - lo), (rng.rand(2, m, 17, 1) < 0.8) * 2.0],
+            -1).astype(np.float32)
+    return {k: torch.from_numpy(a) for k, a in batch.items()}
+
+
+def adapter_step_on_both(name: str):
+    """A tiny model of ``name`` (``ModelAdapter`` with ``small=True``,
+    ResNet (1, 1, 1, 1), 64 px; SSD300 at 300 px), 5 classes (Keypoint
+    R-CNN 2), batch 2, takes one ``detection_train_step`` (SGD 0.0025,
+    weight decay 1e-4, momentum 0.9) on each device from the same seeded
+    weights, TF32 off, the two-stage samplers on the same seeded uniforms.
+    Returns (models, parameters before, the losses, and the launches of the
+    RoIAlign forward, its backward and NMS during each device's step)."""
+    from object_detectors_tpu_torch import detection_main as DM
+    from object_detectors_tpu_torch.kernels import nms as KN
+    from object_detectors_tpu_torch.kernels import roi_align as KR
+    from object_detectors_tpu_torch.kernels import roi_align_bwd as KB
+    from object_detectors_tpu_torch.train import optim, trainer
+
+    size = 300 if name.startswith("ssd") else 64
+    ncls = 2 if name.startswith("keypoint") else 5
+    batch = adapter_batch(name, size)
+    a_total = 3 * (16 ** 2 + 8 ** 2 + 4 ** 2 + 2 ** 2 + 1)
+    g = torch.Generator().manual_seed(2)
+    draws = {"rpn": (torch.rand(2, a_total, generator=g), torch.rand(2, a_total, generator=g)),
+             "roi": (torch.rand(2, 35, generator=g), torch.rand(2, 35, generator=g))}
+    tx = optim.make_optimizer(optim.OptimizerConfig("sgd", 0.0025, 1e-4, 0.9),
+                              optim.SchedulerConfig())
+    models, outs, launches = {}, {}, {}
+    with tf32_off():
+        for dev in ("cpu", "cuda"):
+            adapter = DM.ModelAdapter(name, ncls, size, resnet_layers=(1, 1, 1, 1), small=True,
+                                      device=dev, seed=3)
+            models[dev] = adapter.model
+            before = {k: p.detach().cpu().clone() for k, p in adapter.model.named_parameters()}
+            state = trainer.create_detection_train_state(adapter, tx)
+            start = KR.launches, KB.launches, KN.launches
+            uniforms = ({k: tuple(t.to(dev) for t in v) for k, v in draws.items()}
+                        if name in DM.TWO_STAGE else None)
+            outs[dev] = trainer.detection_train_step(
+                state, adapter, {k: t.to(dev) for k, t in batch.items()}, uniforms=uniforms)[2]
+            launches[dev] = (KR.launches - start[0], KB.launches - start[1],
+                             KN.launches - start[2])
+    return models, before, outs, launches

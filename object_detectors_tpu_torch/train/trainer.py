@@ -190,3 +190,22 @@ def frcnn_train_step_ingest(state: TrainState, canvas: torch.Tensor, sizes: torc
                                                      max_size, torch.float32, min_sizes)
     return frcnn_train_step(state, images, gt_boxes, gt_labels, gt_valid, tfidf,
                             class_weights, generator, uniforms)
+
+
+def create_detection_train_state(adapter, tx: Callable[..., ScheduledOptimizer]) -> TrainState:
+    """The train state of a ``detection_main.ModelAdapter``'s model, put in
+    training mode (no fused eval blocks), on the adapter's device."""
+    return create_frcnn_train_state(adapter.model, tx)
+
+
+def detection_train_step(state: TrainState, adapter, batch: dict,
+                         generator: torch.Generator | None = None, uniforms=None):
+    """One step of any ``ModelAdapter`` architecture, as ``detection_main``'s
+    ``_train_step_impl``: ``adapter.losses`` summed in the dict's order,
+    backward, the optimizer update. The two-stage samplers draw from
+    ``generator`` or take ``uniforms``. Returns (state, total loss, the loss
+    dict)."""
+    losses = adapter.losses(batch, generator, uniforms)
+    total = sum(losses.values())
+    backward_and_update(state, total)
+    return state, total.detach(), {k: v.detach() for k, v in losses.items()}

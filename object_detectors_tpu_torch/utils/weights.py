@@ -6,9 +6,14 @@ module names, so each leaf maps by its path: conv ``kernel`` HWIO ->
 ``weight`` OIHW, Dense ``kernel`` [in, out] -> Linear ``weight`` [out, in],
 ``bias`` -> ``bias``; for YOLO, batch norm ``scale`` / ``bias`` ->
 ``weight`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` ->
-``running_mean`` / ``running_var``; for Faster R-CNN and RetinaNet, the
+``running_mean`` / ``running_var``; for the ResNet-FPN detectors, the
 ``frozen`` collection's leaves are the FrozenBatchNorm buffers of the same
 names.
+
+A Flax ``ConvTranspose`` correlates without flipping its kernel, so its
+(kh, kw, in, out) kernel becomes a ``ConvTranspose2d`` weight [in, out, kh,
+kw] flipped in both spatial axes. A bare parameter (SSD's
+``scale_weight``) keeps its name. Any other leaf raises.
 """
 
 from __future__ import annotations
@@ -74,17 +79,40 @@ def flax_retinanet_to_torch(params, frozen) -> dict[str, torch.Tensor]:
     return _flax_frozen_bn_to_torch(params, frozen)
 
 
-def _flax_frozen_bn_to_torch(params, frozen) -> dict[str, torch.Tensor]:
-    """Convs and dense layers by path; the ``frozen`` collection's leaves are
-    the FrozenBatchNorm buffers of the same names."""
+def flax_maskrcnn_to_torch(params, frozen) -> dict[str, torch.Tensor]:
+    """Flax ``MaskRCNN`` variables -> a state dict for
+    ``models.mask_rcnn.MaskRCNN`` (``conv5_mask`` is a transposed conv)."""
+    return _flax_frozen_bn_to_torch(params, frozen, transposed=("conv5_mask",))
+
+
+def flax_kprcnn_to_torch(params, frozen) -> dict[str, torch.Tensor]:
+    """Flax ``KeypointRCNN`` variables -> a state dict for
+    ``models.keypoint_rcnn.KeypointRCNN`` (``kps_score_lowres`` is a
+    transposed conv)."""
+    return _flax_frozen_bn_to_torch(params, frozen, transposed=("kps_score_lowres",))
+
+
+def flax_ssd_to_torch(params) -> dict[str, torch.Tensor]:
+    """Flax ``SSD300`` parameters -> a state dict for ``models.ssd.SSD300``
+    (the VGG's ``scale_weight`` by its name)."""
+    return _flax_frozen_bn_to_torch(params, {}, bare=("scale_weight",))
+
+
+def _flax_frozen_bn_to_torch(params, frozen, transposed=(), bare=()) -> dict[str, torch.Tensor]:
+    """Convs and dense layers by path, the modules named in ``transposed``
+    as transposed convs, the leaves named in ``bare`` as they are; the
+    ``frozen`` collection's leaves are the FrozenBatchNorm buffers of the
+    same names."""
     state = {}
     for path, value in _leaves(params):
         *mod, leaf = path
         arr = np.asarray(value, np.float32)
-        if leaf == "kernel":
+        if leaf == "kernel" and mod[-1] in transposed:
+            name, arr = "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif leaf == "kernel":
             name, arr = "weight", arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf == "bias" or leaf in bare:
+            name = leaf
         else:
             raise KeyError(f"unexpected Flax parameter {'/'.join(path)}")
         state[".".join(mod + [name])] = torch.from_numpy(np.array(arr))
