@@ -178,6 +178,27 @@ Phases, each printed as JSON lines:
    ssd_train300 and retinanet_train800 (ms a step, peak memory, the tiny
    step).
 
+32. yolo_cli416: the port's YOLO CLI in-process, ``main.main(["train",
+   "dataset=synthetic", "backbone=darknet53", "dataset.inp_dim=416", ...])``:
+   the full Darknet-53 at 416², bf16, 32 synthetic images, batch 8, one
+   epoch with mAP selection; then ``evaluate --checkpoint best --dump-json``
+   and ``resume=true epochs=2``, output under chiprun_out/yolo_cli416 (the
+   checkpoints' weight files deleted at the end).
+   Finite losses, last and best with their sidecars, the resume starting at
+   epoch 1 from parameters and optimizer state bitwise those saved, one NMS
+   launch an eval batch, one eval batch's kept sets identical to the plain
+   ``nms_majority`` on the CPU at that batch's candidates, a finite mAP, ms
+   a train step and an eval batch.
+33. frcnn_cli800: the port's ``detection_main.main`` in-process: the full
+   R50-FPN Faster R-CNN at 800², batch 2, 8 boxes, one epoch on the
+   synthetic set; ``--test-only --resume last --dump-json``; one
+   ``--device-ingest`` epoch; output under chiprun_out/frcnn_cli800 (weight
+   files deleted at the end). One
+   RoIAlign forward, backward and NMS launch a training step (both epochs),
+   the launches of an eval batch, each kernel held against its plain
+   version at one CLI step's own inputs (``check_frcnn_train_kernels``), a
+   finite mAP, ms a step and an eval batch.
+
 The line before the last is the kernel table as JSON (only numbers this run
 measured, and the bounds); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -186,8 +207,10 @@ measured, and the bounds); the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1494,7 +1517,7 @@ def phase_yolo_train(B):
     return t
 
 
-def check_frcnn_train_kernels(KR, KB, KN, step):
+def check_frcnn_train_kernels(KR, KB, KN, step, case="frcnn_train800"):
     """Each kernel of a Faster R-CNN training step against its plain
     version at the inputs that step gave it: the RPN filter's NMS (B x 5
     groups of up to 2000, K 2000, IoU 0.7) identical, the RoIAlign forward
@@ -1506,28 +1529,28 @@ def check_frcnn_train_kernels(KR, KB, KN, step):
         step()
     calls = {"nms": nms, "roi_align": fwd, "roi_align_bwd": bwd}
     for name, seen in calls.items():
-        check(len(seen) == 1, f"a frcnn_train800 step called the {name} kernel {len(seen)} "
+        check(len(seen) == 1, f"a {case} step called the {name} kernel {len(seen)} "
                               f"times")
     (b, sc, thr, k, valid), _ = calls["nms"][0]
-    check_nms(KN, "frcnn_train800 RPN filter, a step's own candidates", b, sc, thr, k, valid)
+    check_nms(KN, f"{case} RPN filter, a step's own candidates", b, sc, thr, k, valid)
     t = nms_kernel_time(KN, b, sc, thr, k, valid)
-    emit(phase="kernel_time", name="nms", case="frcnn_train800 RPN filter", groups=sc.shape[0],
+    emit(phase="kernel_time", name="nms", case=f"{case} RPN filter", groups=sc.shape[0],
          n=sc.shape[1], max_output=k, iou_threshold=thr, **t)
     (maps, boxes, size, out, ratio), _ = calls["roi_align"][0]
-    check(ratio == 2 and size[0] == size[1], f"frcnn_train800 pooled at {size}, ratio {ratio}")
-    check_roi_align(KR, "frcnn_train800, a step's own maps and sampled RoIs", maps, boxes,
+    check(ratio == 2 and size[0] == size[1], f"{case} pooled at {size}, ratio {ratio}")
+    check_roi_align(KR, f"{case}, a step's own maps and sampled RoIs", maps, boxes,
                     size[0], out)
     (cot, bboxes, shapes, bsize, bout, bratio, dtype), _ = calls["roi_align_bwd"][0]
     check(bout == (7, 7) and bratio == 2 and dtype == cot.dtype,
-          f"frcnn_train800's RoIAlign backward at {bout}, ratio {bratio}, {dtype}")
+          f"{case}'s RoIAlign backward at {bout}, ratio {bratio}, {dtype}")
     check(torch.equal(bboxes, boxes), "the RoIAlign backward took other boxes than its forward")
-    check_roi_backward(KR, KB, "frcnn_train800, a step's own cotangent and RoIs", shapes,
+    check_roi_backward(KR, KB, f"{case}, a step's own cotangent and RoIs", shapes,
                        bboxes, cot, bsize[0])
     own = {}
     for dtype in (torch.float32, torch.bfloat16):
         own[str(dtype)] = roi_backward_time(KR, KB, shapes, bboxes, cot.to(dtype), bsize[0])
         emit(phase="kernel_time", name="roi_align_backward", dtype=str(dtype),
-             case="frcnn_train800, a step's own cotangent and RoIs",
+             case=f"{case}, a step's own cotangent and RoIs",
              cotangent_shape=list(cot.shape), **own[str(dtype)])
     return t, own
 
@@ -2233,6 +2256,192 @@ def phase_ssd300(DM, KN):
                 nms={key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kept")})
 
 
+@contextlib.contextmanager
+def per_call(owner, name, kernels):
+    """While inside, each call of ``owner.name`` is timed on the host clock
+    between two synchronizations and the launches of ``kernels`` ({label:
+    wrapper module}) in it are counted: yields a list with one dict a call
+    (``ms``, ``launches``, ``args``: the call's (args, kwargs))."""
+    calls = []
+    wrapped = getattr(owner, name)
+
+    def spy(*args, **kwargs):
+        before = {k: m.launches for k, m in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wrapped(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": {k: m.launches - before[k] for k, m in kernels.items()},
+                      "args": (args, kwargs)})
+        return out
+
+    setattr(owner, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, wrapped)
+
+
+def steady_ms(calls) -> float:
+    """The median time of the calls after the first (which autotunes)."""
+    times = [c["ms"] for c in calls[1:]] or [c["ms"] for c in calls]
+    return float(np.median(times))
+
+
+def same_payload(a, b) -> bool:
+    """Two checkpoint payloads bitwise equal (tensors by value and dtype)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            same_payload(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_payload(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+CLI_OUT = "chiprun_out"
+
+
+def drop_weights(directory: str) -> None:
+    """Delete the checkpoints' weight files under ``directory`` once a phase
+    has read them (hundreds of MB at full width; the sidecars, progress CSV
+    and detections stay)."""
+    for root, _, files in os.walk(directory):
+        for name in files:
+            if name.endswith(".pt"):
+                os.remove(os.path.join(root, name))
+
+
+def phase_yolo_cli(N, KN):
+    """yolo_cli416: the YOLO CLI (``main.main``) in-process on the card: the
+    full Darknet-53 at 416² (bf16), one epoch on 32 synthetic images at
+    batch 8, ``evaluate --checkpoint best --dump-json``, ``resume=true
+    epochs=2`` (module docstring, phase 32). Returns the NMS launches of the
+    three runs and the timings."""
+    import shutil
+
+    from object_detectors_tpu_torch import main as M
+    from object_detectors_tpu_torch.train import checkpoint as ckpt_lib
+
+    out = f"{CLI_OUT}/yolo_cli416"
+    shutil.rmtree(out, ignore_errors=True)
+    ov = ["dataset=synthetic", "backbone=darknet53", "dataset.inp_dim=416",
+          "dataset.num_images=32", "dataset.tr_batch_size=8", "dataset.ts_batch_size=8",
+          "epochs=1", "metric=mAP", f"output_dir={out}"]
+    batches = 32 // 8
+    KN.launches = 0
+    with (per_call(M.trainer, "yolo_train_step_ingest", {"nms": KN}) as steps,
+          per_call(M, "decode_and_nms", {"nms": KN}) as evals):
+        _, best = M.main(["train", *ov])
+        ckpts = f"{out}/checkpoints"
+        for tag in ("last", "best"):
+            check(all(os.path.exists(f"{ckpts}/{tag}{ext}") for ext in (".pt", ".meta.json")),
+                  f"yolo_cli416 wrote no {tag} checkpoint")
+        saved = torch.load(f"{ckpts}/last.pt", weights_only=True)
+        with watched(M, "nms_majority") as nms_calls:
+            mAP = M.main(["evaluate", *ov, "--checkpoint", "best",
+                          "--dump-json", f"{out}/detections.json"])
+        restored = {}
+        restore = ckpt_lib.CheckpointManager.restore
+
+        def spy_restore(self, tag, state):
+            got = restore(self, tag, state)
+            if got is not None:
+                restored["payload"] = copy.deepcopy(ckpt_lib.state_payload(got[0]))
+                restored["epoch"] = got[1]
+            return got
+        ckpt_lib.CheckpointManager.restore = spy_restore
+        try:
+            M.main(["train", *ov, "resume=true", "epochs=2"])
+        finally:
+            ckpt_lib.CheckpointManager.restore = restore
+    launches = KN.launches
+    with open(f"{out}/progress/progress.csv") as f:
+        rows = [line.strip().split(",") for line in f][1:]
+    losses = [float(x) for r in rows for x in r[1:8]]
+    check(all(math.isfinite(x) for x in losses), f"yolo_cli416 losses {losses}")
+    check([r[0] for r in rows] == ["0", "1"], f"yolo_cli416 trained epochs {[r[0] for r in rows]}")
+    check(restored.get("epoch") == 0 and same_payload(restored["payload"], saved),
+          "yolo_cli416's resume did not restore the saved parameters and optimizer state")
+    check(math.isfinite(mAP) and math.isfinite(best), f"yolo_cli416 mAP {mAP}, best {best}")
+    check(len(steps) == 2 * batches and len(evals) == 3 * batches,
+          f"yolo_cli416 ran {len(steps)} train steps and {len(evals)} eval batches")
+    check(all(c["launches"]["nms"] == 1 for c in evals) and launches == len(evals),
+          f"yolo_cli416 NMS launches: {[c['launches']['nms'] for c in evals]}, {launches}")
+    # the eval batch with the most candidates above the confidence threshold;
+    # its candidates also all taken as valid, so that the kept set is not empty
+    (b, sc, lab), kw = max(nms_calls, key=lambda c: int(c[1]["valid"].sum()))
+    check(kw["iou_threshold"] == 0.6 and kw["max_output"] == 100,
+          f"yolo_cli416's NMS at {kw}")
+    _, kept = same_nms(N, "yolo_cli416", "an eval batch's own candidates", b, sc, lab,
+                       kw["valid"], num_classes=kw["num_classes"])
+    _, kept_all = same_nms(N, "yolo_cli416", "an eval batch's own candidates, all valid", b,
+                           sc, lab, None, num_classes=kw["num_classes"])
+    check(kept_all > 0, "yolo_cli416: nothing kept of an eval batch's candidates")
+    drop_weights(out)
+    fields = dict(launches=launches, ms_per_train_step=steady_ms(steps),
+                  ms_per_eval_batch=steady_ms(evals), mAP=mAP, best=best,
+                  train_steps=len(steps), eval_batches=len(evals), kept=kept,
+                  kept_all_valid=kept_all)
+    emit(phase="yolo_cli416", batch=8, img=416, resumed_from_epoch=restored["epoch"],
+         final_losses=dict(zip(("xy", "wh", "iou", "pos_conf", "neg_conf", "cls", "total"),
+                               map(float, rows[-1][1:8]))), **fields)
+    return fields
+
+
+def phase_frcnn_cli(KR, KB, KN):
+    """frcnn_cli800: ``detection_main.main`` in-process on the card: the full
+    R50-FPN Faster R-CNN at 800², batch 2 (module docstring, phase 33).
+    Returns the launches of its runs by kernel and the timings."""
+    import shutil
+
+    from object_detectors_tpu_torch import detection_main as DM
+
+    out = f"{CLI_OUT}/frcnn_cli800"
+    shutil.rmtree(out, ignore_errors=True)
+    cli = ["--dataset", "synthetic", "--model", "fasterrcnn_resnet50_fpn", "--epochs", "1",
+           "--batch-size", "2", "--image-size", "800", "--max-boxes", "8"]
+    kernels = {"roi_align": KR, "roi_align_bwd": KB, "nms": KN}
+    KR.launches = KB.launches = KN.launches = 0
+    with (per_call(DM.trainer, "detection_train_step", kernels) as steps,
+          per_call(DM.ModelAdapter, "detect", kernels) as evals):
+        state = DM.main([*cli, "--output-dir", out])
+        check(state is not None, "frcnn_cli800 stopped on a non-finite loss")
+        mAP = DM.main([*cli, "--test-only", "--resume", "last", "--output-dir", out,
+                       "--dump-json", f"{out}/detections.json"])
+        n_train = len(steps)
+        ingest = DM.main([*cli, "--device-ingest", "--output-dir", f"{out}_ingest"])
+        check(ingest is not None, "frcnn_cli800 --device-ingest stopped on a non-finite loss")
+    launches = {k: m.launches for k, m in kernels.items()}
+    check(n_train == 8 and len(steps) == 16, f"frcnn_cli800 ran {n_train}, {len(steps)} steps")
+    check(all(c["launches"] == {"roi_align": 1, "roi_align_bwd": 1, "nms": 1} for c in steps),
+          f"frcnn_cli800 launches a step: {[c['launches'] for c in steps]}")
+    first = evals[0]["launches"]
+    check(all(c["launches"] == first for c in evals) and first["roi_align"] >= 1
+          and first["roi_align_bwd"] == 0 and first["nms"] >= 2,
+          f"frcnn_cli800 launches an eval batch: {[c['launches'] for c in evals]}")
+    check(math.isfinite(mAP) and os.path.exists(f"{out}/detections.json"),
+          f"frcnn_cli800 mAP {mAP}")
+    for run in (out, f"{out}_ingest"):
+        meta = json.load(open(f"{run}/checkpoints/last.meta.json"))
+        check(meta["epoch"] == 0 and math.isfinite(meta["metrics"]["mAP"]),
+              f"{run}'s last checkpoint: {meta}")
+    (state, adapter, batch), kw = steps[n_train - 1]["args"]
+    check_frcnn_train_kernels(
+        KR, KB, KN, lambda: DM.trainer.detection_train_step(state, adapter, batch, **kw),
+        case="frcnn_cli800")
+    for run in (out, f"{out}_ingest"):
+        drop_weights(run)
+    fields = dict(launches=launches, ms_per_train_step=steady_ms(steps[:n_train]),
+                  ms_per_ingest_step=steady_ms(steps[n_train:]),
+                  ms_per_eval_batch=steady_ms(evals), mAP=mAP, train_steps=len(steps),
+                  eval_batches=len(evals), launches_per_eval_batch=first)
+    emit(phase="frcnn_cli800", batch=2, img=800, **fields)
+    return fields
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -2327,6 +2536,8 @@ def main() -> int:
                                                "retinanet_train800")}
     emit(phase="detection_main", ms={k: v.get("ms_per_batch", v.get("ms_per_step"))
                                      for k, v in dm.items()})
+    yolo_cli = phase_yolo_cli(N, KN)
+    frcnn_cli = phase_frcnn_cli(KR, KB, KN)
 
     branches = ("maskrcnn800", "kprcnn800")
     trains = ("maskrcnn_train800", "kprcnn_train800")
@@ -2334,7 +2545,8 @@ def main() -> int:
                              *(dm[p]["max_abs_err"] for p in branches))
     roi["launches_by_path"] = {"frcnn640": roi["launches"],
                                "frcnn_train800": frcnn_train["launches"]["roi_align"],
-                               **{p: dm[p]["launches"]["roi_align"] for p in branches + trains}}
+                               **{p: dm[p]["launches"]["roi_align"] for p in branches + trains},
+                               "frcnn_cli800": frcnn_cli["launches"]["roi_align"]}
     roi["branch_14x14"] = {p: dm[p]["roi_align_14x14"] for p in branches}
     roi["launches"] = sum(roi["launches_by_path"].values())
     retina_pre = sum(retina_launches[mode]["preprocess"] for mode in retina_launches)
@@ -2347,7 +2559,9 @@ def main() -> int:
                                "frcnn_train800": frcnn_train["launches"]["nms"],
                                "protocol": protocol_nms, "eval_planted": planted_nms,
                                **{p: dm[p]["launches"]["nms"] for p in branches + trains},
-                               "ssd300": dm["ssd300"]["launches"]}
+                               "ssd300": dm["ssd300"]["launches"],
+                               "yolo_cli416": yolo_cli["launches"],
+                               "frcnn_cli800": frcnn_cli["launches"]["nms"]}
     nms["launches"] = sum(nms["launches_by_path"].values())
     nms["frcnn_train800_rpn_shape"] = {key: frcnn_train["nms"][key] for key in MEASURED_NMS
                                        if key in frcnn_train["nms"]}
@@ -2403,9 +2617,11 @@ def main() -> int:
         "source": "object_detectors_tpu_torch/csrc/roi_align.cu",
         "replaces": "object_detectors_tpu/ops/roi_align.py:381 (XLA VJP, no pallas_call)",
         "launches": (frcnn_train["launches"]["roi_align_bwd"]
-                     + sum(dm[p]["launches"]["roi_align_bwd"] for p in trains)),
+                     + sum(dm[p]["launches"]["roi_align_bwd"] for p in trains)
+                     + frcnn_cli["launches"]["roi_align_bwd"]),
         "launches_by_path": {"frcnn_train800": frcnn_train["launches"]["roi_align_bwd"],
-                             **{p: dm[p]["launches"]["roi_align_bwd"] for p in trains}},
+                             **{p: dm[p]["launches"]["roi_align_bwd"] for p in trains},
+                             "frcnn_cli800": frcnn_cli["launches"]["roi_align_bwd"]},
         "max_abs_err": max(bwd_err, *(dm[p]["max_abs_err"] for p in trains)),
         **bwd_timing["torch.float32"],  # Faster R-CNN trains in f32
         "bf16": bwd_timing["torch.bfloat16"],

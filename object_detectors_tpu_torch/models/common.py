@@ -54,6 +54,8 @@ class ConvBN(nn.Module):
             x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                              False, 0.0, bn.eps)
             return F.leaky_relu(x, 0.1)
+        if isinstance(bn, nn.SyncBatchNorm):  # data parallel (parallel/mesh.py)
+            return F.leaky_relu(bn(x), 0.1)
         # the batch statistics come out of the normalization itself (f32 mean
         # and 1 / sqrt(var + eps) of the biased variance); the running
         # statistics are left to the update below

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -139,6 +140,14 @@ def multiscale_sizes(base: int, lower: float = 0.5, upper: float = 1.5,
     lo = int(base * lower) // divisor
     hi = int(base * upper) // divisor
     return tuple(d * divisor for d in range(lo, hi + 1))
+
+
+def draw_generator(seed: int, index: int, device: str | torch.device = "cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, index): the counterpart
+    of JAX's ``fold_in(key(seed), index)``, so that every process draws the
+    same and a resumed run draws what an uninterrupted one would."""
+    words = np.random.SeedSequence([seed, index]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(words[0]) << 31 | int(words[1]) >> 1)
 
 
 def pick_scale(generator: torch.Generator, sizes: Sequence[int]) -> int:
