@@ -141,7 +141,11 @@ Phases, each printed as JSON lines:
    identical to those on the CPU's, stats within 1e-6; the two whole
    pipelines: the same (image, category) results with their boxes within
    RAW_ATOL carried through the decode and stats within 1e-6 (their order is
-   not compared: near-tied scores swap neighbours).
+   not compared: near-tied scores swap neighbours). Then protocol_trained:
+   the bench's ``--protocol`` CLI (batch sizes 8 and 64) with a seeded tiny
+   YOLO saved in ``make_artifacts``' format into a temporary artifacts
+   directory: the trained branch must run (``"weights": "trained"``, the
+   meta's 64² size, at most 20 detections an image).
 23. eval_planted: the JAX round-trip test on the card: a renderable set of
    32 images of 480² to 640² through ``yolo_batches_uint8`` (640² canvas),
    the canvas resized to 416 on the GPU against the CPU (f32 within 1e-5,
@@ -198,6 +202,22 @@ Phases, each printed as JSON lines:
    the launches of an eval batch, each kernel held against its plain
    version at one CLI step's own inputs (``check_frcnn_train_kernels``), a
    finite mAP, ms a step and an eval batch.
+34. analysis: the ten timers of ``object_detectors_tpu_torch/analysis/``
+   (``ANALYSIS_TIMERS``: darknet_ablate, backbone_ablate --fused
+   --stem-detail, frcnn_ablate, retinanet_ablate --fused, rpnfilter_ablate,
+   roialign_bench, topk_bench, decode_bench, train_ablate, serving_ablate)
+   through their ``main`` at their default full-width shapes with
+   ``--iters 2``, the kernels' launch counts set to 0 before each and read
+   after: one JSON line each with the card, every time finite and
+   positive, and each timer's own checks (pieces equal to the pipeline's
+   call, RoIAlign kernel within its gates of the plain version, decode
+   formulations bitwise equal, top-k sets equal, the training model
+   untouched) with the launches of its path: frcnn_ablate 1 RoIAlign and
+   2 NMS a full call, retinanet_ablate 1 NMS and 13 fused a call, one NMS
+   a proposal filter, one normalize and one NMS a serving flush.
+
+Phase 27-31's 14x14 RoIAlign backward lines carry its plain version's
+time at the branch's own cotangent.
 
 The line before the last is the kernel table as JSON (only numbers this run
 measured, and the bounds); the last line is
@@ -208,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -1727,6 +1748,45 @@ def phase_protocol(B, PL, N, KN):
     return launches
 
 
+def phase_protocol_trained(B):
+    """The bench's ``--protocol`` CLI with a trained artifact in place: a
+    seeded tiny ``YoloHead`` (4 classes, 64², backbone (1, 1, 1, 1, 1))
+    saved in ``make_artifacts``' own format into a temporary artifacts
+    directory. The trained branch must run: ``"weights": "trained"``, the
+    meta's image size, at most 20 detections an image."""
+    import tempfile
+
+    from object_detectors_tpu_torch.analysis import make_artifacts as MA
+    from object_detectors_tpu_torch.models.yolo import YoloHead, init_yolo_
+
+    meta = {"model": "yolo_tiny", "num_classes": 4, "img_size": 64,
+            "backbone_layers": [1, 1, 1, 1, 1]}
+    saved = MA.ARTIFACTS
+    with tempfile.TemporaryDirectory() as tmp:
+        MA.ARTIFACTS = tmp
+        try:
+            MA._save(os.path.join(tmp, "synthetic_yolo.pt"), init_yolo_(
+                YoloHead(4, backbone_layers=(1, 1, 1, 1, 1)), seed=3).state_dict(), meta)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                B.main(["--protocol", "--batch-sizes", "8", "64"])
+        finally:
+            MA.ARTIFACTS = saved
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    rows = line["rows"]
+    emit(phase="protocol_trained", weights=line["weights"], card=line["card"],
+         rows=rows, value=line["value"])
+    check(line["weights"] == "trained", f"bench --protocol scored {line['weights']} weights "
+                                        f"with an artifact in place")
+    check(all(r["img_size"] == meta["img_size"] for r in rows),
+          f"the trained protocol ran at {[r['img_size'] for r in rows]}")
+    check(all(r["detections"] <= 20 * PROTOCOL_IMAGES for r in rows),
+          f"the trained protocol kept more than 20 detections an image: {rows}")
+    check(all(math.isfinite(r[k]) for r in rows for k in B.PROTOCOL_FIELDS),
+          "a trained protocol row is not finite")
+    return line
+
+
 def planted_set():
     """A renderable synthetic set at COCO-like sizes: 32 images of 480² to
     640², up to 6 boxes of 80 classes each (the boxes lie inside 480²)."""
@@ -2174,12 +2234,14 @@ def phase_dm_train(DM, KR, KB, KN, name, phase, size=DM_IMG, per_step=(0, 0, 0))
             KR, KB, f"{phase} 14x14 branch, a step's own cotangent and RoIs", shapes, boxes,
             cot, bsize[0])
         t = roi_backward_time(KR, KB, shapes, boxes, cot, bsize[0])
+        t["plain_ms"] = cuda_ms(lambda: KB.multiscale_roi_align_backward_reference(
+            cot, boxes, shapes, bsize, (14, 14), dtype=cot.dtype), 2)
         emit(phase="kernel_time", name="roi_align_backward", dtype=str(cot.dtype),
              case=f"{phase} 14x14 branch, a step's own cotangent and RoIs",
              cotangent_shape=list(cot.shape), library_ms=None, **t)
         fields["roi_align_bwd_14x14"] = {k: t[k] for k in (
-            "ms", "kernel_only_ms", "zeroing_ms", "bound_ms", "bound_by", "staged_rois",
-            "direct_rois")}
+            "ms", "plain_ms", "kernel_only_ms", "zeroing_ms", "bound_ms", "bound_by",
+            "staged_rois", "direct_rois")}
 
     models, before, tiny, tiny_launches = TS.adapter_step_on_both(name)
     for k, v in tiny["cpu"].items():
@@ -2442,6 +2504,104 @@ def phase_frcnn_cli(KR, KB, KN):
     emit(phase="frcnn_cli800", batch=2, img=800, **fields)
     return fields
 
+# each analysis timer's arguments in the analysis phase: its default
+# (full-width) shapes, few iterations, the kernels' options on
+ANALYSIS_TIMERS = {
+    "darknet_ablate": ["--iters", "2"],
+    "backbone_ablate": ["--iters", "2", "--fused", "--stem-detail"],
+    "frcnn_ablate": ["--iters", "2"],
+    "retinanet_ablate": ["--iters", "2", "--fused"],
+    "rpnfilter_ablate": ["--iters", "2"],
+    "roialign_bench": ["--iters", "2"],
+    "topk_bench": ["--iters", "2"],
+    "decode_bench": ["--iters", "2"],
+    "train_ablate": ["--iters", "2"],
+    "serving_ablate": [],
+}
+TIMED_KEYS = ("stage_ms", "variant_ms", "img_per_s", "mrois_per_s")
+
+
+def positive_times(tree) -> bool:
+    """Every number under ``tree`` finite and positive."""
+    if isinstance(tree, dict):
+        return all(positive_times(v) for v in tree.values())
+    return math.isfinite(tree) and tree > 0
+
+
+def phase_analysis(KR, KN, KF, P):
+    """The ten analysis timers' ``main(argv)`` on the card, at their
+    default shapes with ``ANALYSIS_TIMERS``' arguments, each with the
+    kernels' launch counts set to 0 before it and read after. Each must
+    print one JSON line with the card, every time finite and positive, and
+    its own checks passed (each timer raises on a failed one; read again
+    here): frcnn_ablate's and retinanet_ablate's ``full_pieces`` equal to
+    the model's and the pipeline's own call, rpnfilter_ablate's pieces
+    equal to ``filter_proposals``, roialign_bench's kernel within the
+    RoIAlign gates of its plain version, decode_bench's formulations
+    bitwise equal, topk_bench's selections equal; and the launches of the
+    kernels on each timer's path. Returns {timer: launches}."""
+    import importlib
+
+    kernels = {"roi_align": KR, "nms": KN, "fused_block": KF, "preprocess": P}
+    launches = {}
+    for timer, argv in ANALYSIS_TIMERS.items():
+        module = importlib.import_module(f"object_detectors_tpu_torch.analysis.{timer}")
+        for m in kernels.values():
+            m.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            module.main(argv)
+        seconds = time.perf_counter() - t0
+        printed = out.getvalue().strip().splitlines()
+        check(len(printed) == 1, f"{timer} printed {len(printed)} lines")
+        line = json.loads(printed[0])
+        launches[timer] = {k: m.launches for k, m in kernels.items()}
+        emit(phase="analysis", seconds=seconds, launches=launches[timer], **line)
+        check(line["card"] == card_line(), f"{timer} names the card {line['card']!r}")
+        timed = [line[k] for k in TIMED_KEYS if k in line]
+        if timer == "serving_ablate":
+            timed = [{k: line[k] for k in ("wall_s", "kernel_sum_s", "rpc_cost_ms",
+                                            "img_per_s")}]
+        check(timed and all(positive_times(t) for t in timed),
+              f"{timer} has a time that is not finite and positive")
+        got = launches[timer]
+        if timer == "backbone_ablate":
+            check(got["fused_block"] > 0 and line["fused_launches"] == got["fused_block"],
+                  f"backbone_ablate --fused launched the fused kernel {got}")
+        if timer == "frcnn_ablate":
+            check(line["full_pieces_equal"], "frcnn_ablate's full_pieces differs")
+            check(line["launches_per_full_call"] == {"roi_align": 1, "nms": 2},
+                  f"frcnn_ablate's full call launched {line['launches_per_full_call']}")
+        if timer == "retinanet_ablate":
+            check(line["full_pieces_equal"], "retinanet_ablate's full_pieces differs")
+            check(line["launches_per_full_call"] == {"nms": 1, "fused_block": 13},
+                  f"retinanet_ablate's full call launched {line['launches_per_full_call']}")
+        if timer == "rpnfilter_ablate":
+            check(line["pieces_equal_filter"] and line["nms_launches_per_full_filter"] == 1,
+                  f"rpnfilter_ablate: pieces {line['pieces_equal_filter']}, "
+                  f"{line['nms_launches_per_full_filter']} NMS launches a filter")
+        if timer == "roialign_bench":
+            check(got["roi_align"] > 0 and line["roi_align_launches"] == got["roi_align"],
+                  f"roialign_bench launched the RoIAlign kernel {got}")
+            check(set(line["kernel_max_abs_err"]) == {"bf16", "f32"},
+                  "roialign_bench did not hold both dtypes")
+        if timer == "decode_bench":
+            check(line["anchor_mismatches"] == 0 and not any(line["box_mismatches"].values()),
+                  "decode_bench's formulations differ")
+        if timer == "topk_bench":
+            check(all(all(v.values()) for v in line["same_selection"].values()),
+                  f"topk_bench's selections differ: {line['same_selection']}")
+        if timer == "train_ablate":
+            check(line["model_unchanged"], "train_ablate changed the model")
+        if timer == "serving_ablate":
+            flushes = sum(line["flushes"].values())
+            check(line["kernel_budget_launches"] == {"preprocess": flushes, "nms": flushes},
+                  f"serving_ablate's {flushes} flushes launched "
+                  f"{line['kernel_budget_launches']}")
+    return launches
+
+
 def main() -> int:
     emit(phase="device", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available())
@@ -2516,6 +2676,7 @@ def main() -> int:
     frcnn_train = phase_frcnn_train(KR, KB, KN)
 
     protocol_nms = phase_protocol(B, PL, N, KN)
+    phase_protocol_trained(B)
     planted_nms = phase_eval_planted(N, KN, P)
     phase_ingest(P)
 
@@ -2538,6 +2699,7 @@ def main() -> int:
                                      for k, v in dm.items()})
     yolo_cli = phase_yolo_cli(N, KN)
     frcnn_cli = phase_frcnn_cli(KR, KB, KN)
+    analysis = phase_analysis(KR, KN, KF, P)
 
     branches = ("maskrcnn800", "kprcnn800")
     trains = ("maskrcnn_train800", "kprcnn_train800")
@@ -2546,7 +2708,9 @@ def main() -> int:
     roi["launches_by_path"] = {"frcnn640": roi["launches"],
                                "frcnn_train800": frcnn_train["launches"]["roi_align"],
                                **{p: dm[p]["launches"]["roi_align"] for p in branches + trains},
-                               "frcnn_cli800": frcnn_cli["launches"]["roi_align"]}
+                               "frcnn_cli800": frcnn_cli["launches"]["roi_align"],
+                             **{f"analysis {t}": analysis[t]["roi_align"]
+                                for t in ("frcnn_ablate", "roialign_bench")}}
     roi["branch_14x14"] = {p: dm[p]["roi_align_14x14"] for p in branches}
     roi["launches"] = sum(roi["launches_by_path"].values())
     retina_pre = sum(retina_launches[mode]["preprocess"] for mode in retina_launches)
@@ -2561,7 +2725,10 @@ def main() -> int:
                                **{p: dm[p]["launches"]["nms"] for p in branches + trains},
                                "ssd300": dm["ssd300"]["launches"],
                                "yolo_cli416": yolo_cli["launches"],
-                               "frcnn_cli800": frcnn_cli["launches"]["nms"]}
+                               "frcnn_cli800": frcnn_cli["launches"]["nms"],
+                               **{f"analysis {t}": analysis[t]["nms"]
+                                  for t in ("frcnn_ablate", "retinanet_ablate",
+                                            "rpnfilter_ablate", "serving_ablate")}}
     nms["launches"] = sum(nms["launches_by_path"].values())
     nms["frcnn_train800_rpn_shape"] = {key: frcnn_train["nms"][key] for key in MEASURED_NMS
                                        if key in frcnn_train["nms"]}
@@ -2573,12 +2740,14 @@ def main() -> int:
         "source": "object_detectors_tpu_torch/csrc/preprocess.cu",
         "replaces": "object_detectors_tpu/kernels/preprocess.py:33",
         "launches": (timing["launches"] + serving_launches["preprocess"]
-                     + lvis_launches["preprocess"] + frcnn_launches["preprocess"] + retina_pre),
+                     + lvis_launches["preprocess"] + frcnn_launches["preprocess"] + retina_pre
+                     + analysis["serving_ablate"]["preprocess"]),
         "launches_by_path": {"yolo640": timing["launches"],
                              "serving": serving_launches["preprocess"],
                              "yolo_lvis416": lvis_launches["preprocess"],
                              "frcnn640": frcnn_launches["preprocess"],
-                             "retinanet640": retina_pre},
+                             "retinanet640": retina_pre,
+                             "analysis serving_ablate": analysis["serving_ablate"]["preprocess"]},
         "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -2600,11 +2769,15 @@ def main() -> int:
         "name": "fused_bottleneck", "route": "cuda",
         "source": "object_detectors_tpu_torch/csrc/fused_block.cu",
         "replaces": "object_detectors_tpu/kernels/fused_block.py:180",
-        "launches": retina_launches["auto"]["fused_block"],
+        "launches": (retina_launches["auto"]["fused_block"]
+                     + analysis["backbone_ablate"]["fused_block"]
+                     + analysis["retinanet_ablate"]["fused_block"]),
         "launches_by_path": {"retinanet640 (backbone_fused=auto)":
                              retina_launches["auto"]["fused_block"],
                              "frcnn640 backbone (backbone_fused=auto)":
-                             frcnn_fused["fused_launches_per_forward"]},
+                             frcnn_fused["fused_launches_per_forward"],
+                             **{f"analysis {t} --fused": analysis[t]["fused_block"]
+                                for t in ("backbone_ablate", "retinanet_ablate")}},
         "max_abs_err": fused_err,
         **fused_per_forward,
         "per_shape": [{key: t[key] for key in ("shape", "count", "ms", "plain_ms", "library_ms",

@@ -75,11 +75,15 @@ def train_yolo(epochs: int | None = None, device: str = "cuda", overrides=()):
     return best
 
 
-def load_yolo_artifact(device: str = "cpu"):
+def load_yolo_artifact(device: str | torch.device = "cuda"):
     """-> (``YoloHead`` with the trained weights on ``device``, meta), or
-    (None, None) where the artifact is absent or does not load."""
+    (None, None) where the artifact is absent or does not load: the JAX
+    loader's "no artifact" answer, on which the protocol scores seeded
+    weights. A CUDA ``device`` without a GPU raises."""
+    from object_detectors_tpu_torch._device import resolve_device
     from object_detectors_tpu_torch.models.yolo import YoloHead
 
+    device = resolve_device(device)
     path = os.path.join(ARTIFACTS, "synthetic_yolo.pt")
     if not (os.path.exists(path) and os.path.exists(path + ".json")):
         return None, None

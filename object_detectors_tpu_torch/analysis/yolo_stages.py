@@ -17,6 +17,11 @@ pre-staged batches:
 
 Prints one JSON line; the Chrome trace goes to ``DIR/yolo_stages_trace.json``
 when ``--out`` is given. Needs a GPU.
+
+The analysis timers share this module's helpers: ``time_calls`` and
+``prefix_times`` (back-to-back calls, one synchronization at the end),
+``run_through`` (a call cut at one of its ``on_stage`` marks) and
+``timer_line`` (the one JSON line with the card).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import json
 import os
 import subprocess
 import tempfile
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -59,6 +65,69 @@ def stage_times(pipe, batches, iters):
                 for k, name in enumerate(names):
                     totals[name] += ev[k].elapsed_time(ev[k + 1])
     return {name: t / iters for name, t in totals.items()}
+
+
+def synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_calls(fn, *args, warmup: int = 2, iters: int = 10, device="cuda") -> float:
+    """Seconds a call of ``fn(*args)``: ``warmup`` calls and a
+    synchronization, then ``iters`` back-to-back calls and one
+    synchronization at the end (eager PyTorch runs every call's work, so
+    nothing is reduced to a scalar to keep it)."""
+    for _ in range(warmup):
+        fn(*args)
+    synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    synchronize(device)
+    return (time.perf_counter() - t0) / iters
+
+
+def prefix_times(stages: dict, *args, warmup: int = 2, iters: int = 10, device="cuda"):
+    """{name: ms a call} of each stage (``time_calls``) and {name: ms over
+    the stage before}, in the order of ``stages``."""
+    ms, marginal, prev = {}, {}, 0.0
+    for name, fn in stages.items():
+        ms[name] = time_calls(fn, *args, warmup=warmup, iters=iters, device=device) * 1e3
+        marginal[name] = ms[name] - prev
+        prev = ms[name]
+    return ms, marginal
+
+
+class _Stop(Exception):
+    pass
+
+
+def run_through(fn, stage: str, *args, **kwargs) -> None:
+    """Call ``fn(*args, on_stage=..., **kwargs)`` and stop it at its
+    ``on_stage(stage)`` mark: the call's own code up to and including that
+    stage, its work queued on the device. A call that never marks
+    ``stage`` raises."""
+    def mark(name):
+        if name == stage:
+            raise _Stop
+
+    try:
+        fn(*args, on_stage=mark, **kwargs)
+    except _Stop:
+        return
+    raise ValueError(f"the call never reached the stage {stage!r}")
+
+
+def timer_line(timer: str, device, **fields) -> dict:
+    """Print one JSON line of an analysis timer: its name, the device, the
+    card's name and power limit (nvidia-smi's; "none" on the CPU) and
+    ``fields``; returns it."""
+    from object_detectors_tpu_torch.bench import card_line
+
+    line = {"timer": timer, "device": torch.device(device).type, "card": card_line(device),
+            **fields}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def trace(pipe, batches, calls, out_dir, filename="yolo_stages_trace.json"):

@@ -44,10 +44,19 @@ run is a CSV row: ``forw_time`` (the pipeline calls, each to its outputs
 being ready on the device: one synchronize a batch, as JAX's
 ``block_until_ready``), ``cpu_time`` (``summarize``), ``app_time`` (the whole
 run: host batches, pipeline, host copies, evaluation) and ``map``; the
-returned rows also carry ``detections``. The CSV goes to
+returned rows also carry ``detections`` and ``img_size``. The CSV goes to
 ``output/benchmark_res.csv``; the printed line has ``metric``
-("benchmark_protocol"), ``value`` (the last row's mAP), ``unit``, ``rows``
-and ``card``.
+("benchmark_protocol"), ``value`` (the last row's mAP), ``unit``, ``rows``,
+``weights`` and ``card``. As the root bench does, the protocol scores the
+trained artifact when ``analysis/make_artifacts.py`` has written one
+(``output/artifacts_torch/synthetic_yolo.pt`` with its sidecar): its
+renderable 96² set at the artifact's size, top-64, 20 detections
+(``"weights": "trained"``); otherwise the seeded full-width YOLOv3 above
+(``"weights": "seeded"``).
+
+``--device`` (default ``cuda``) is the protocol's device; ``cpu`` runs it
+on the CPU (the tests do), where ``card`` reads "none". The rows run on
+the card.
 
 ``mfu`` of a row is the floating-point operations that
 ``torch.utils.flop_counter.FlopCounterMode`` counts over one call, divided
@@ -91,8 +100,11 @@ PROTOCOL_CSV = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 PROTOCOL_FIELDS = ("batch", "forw_time", "cpu_time", "app_time", "map")
 
 
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
+def card_line(device="cuda") -> str:
+    """The card's name and power limit as nvidia-smi gives them; "none"
+    for a CPU device."""
+    if torch.device(device).type != "cuda":
+        return "none"
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
@@ -436,7 +448,8 @@ def run_protocol(batch_sizes=PROTOCOL_LADDER, img_size=416, num_images=256,
             app = time.perf_counter() - t_app0
             rows.append({"batch": bs, "forw_time": round(forw, 3),
                          "cpu_time": round(cpu_eval, 3), "app_time": round(app, 3),
-                         "map": round(float(stats[0]), 5), "detections": len(ev.results)})
+                         "map": round(float(stats[0]), 5), "detections": len(ev.results),
+                         "img_size": img_size})
     os.makedirs(os.path.dirname(out_csv) or ".", exist_ok=True)
     with open(out_csv, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=PROTOCOL_FIELDS, extrasaction="ignore")
@@ -461,14 +474,25 @@ def main(argv=None):
                     help="the reference benchmark protocol instead of the rows: 256 "
                          "synthetic 416² images through full-width YOLOv3, NMS and the "
                          "COCO evaluator, two runs per batch size of 2 to 128 "
-                         "(--batch-sizes); timing and mAP rows to output/benchmark_res.csv")
+                         "(--batch-sizes); timing and mAP rows to output/benchmark_res.csv; "
+                         "the trained artifact of analysis/make_artifacts.py when present")
+    ap.add_argument("--device", default="cuda",
+                    help="the protocol's device: cuda (default) or cpu; the rows run on "
+                         "the card")
     args = ap.parse_args(argv)
 
     if args.protocol:
-        card = card_line()
-        rows = run_protocol(tuple(args.batch_sizes or PROTOCOL_LADDER))
+        from object_detectors_tpu_torch.analysis.make_artifacts import load_yolo_artifact
+
+        device = resolve_device(args.device)
+        card = card_line(device)
+        model, meta = load_yolo_artifact(device)
+        rows = run_protocol(tuple(args.batch_sizes or PROTOCOL_LADDER), device=device,
+                            model=model, meta=meta)
         print(json.dumps({"metric": "benchmark_protocol", "value": rows[-1]["map"],
-                          "unit": "mAP", "rows": rows, "card": card}))
+                          "unit": "mAP", "rows": rows,
+                          "weights": "seeded" if model is None else "trained",
+                          "card": card}))
         return
 
     if args.batch_sizes:

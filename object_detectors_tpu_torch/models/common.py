@@ -112,6 +112,14 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int = 1) -> torch.Tensor
     return F.max_pool2d(x, window, stride, (window - 1) // 2)
 
 
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """The 3x3, stride-2, pad-1 max pool of the ResNet stem on NCHW: the
+    JAX function of this name, which computes it by a phase decomposition
+    on even sizes and as ``max_pool_same`` on odd ones; both are this
+    function, the padding taking no part in the max."""
+    return F.max_pool2d(x, 3, 2, 1)
+
+
 class ClassAttention(nn.Module):
     """SE-style class-logit attention (the JAX ``ClassAttention``, unused on
     the main path): the class logits [B, ..., C] averaged over everything

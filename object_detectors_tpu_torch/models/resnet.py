@@ -1,13 +1,23 @@
-"""ResNet backbone with frozen batch norm and the FPN on top (port of the
-JAX package's ``models/resnet.py``, torchvision v1.5 Bottleneck: the
-stride sits on the 3x3 conv).
+"""ResNet backbone and the FPN on top (port of the JAX package's
+``models/resnet.py``): the torchvision v1.5 Bottleneck (the stride sits on
+the 3x3 conv) of ResNet-50, and the BasicBlock of ResNet-18 and -34
+(``block="basic"``).
 
-The stem is the plain composition conv1 7x7/s2 -> FrozenBN -> ReLU ->
-3x3/s2 max pool; the JAX package computes the same function in a
-phase-split layout for the TPU, which is not ported. Submodule names follow
-the Flax module names (``conv1``, ``bn1``, ``layer{s}_block{i}`` with
-``conv1..3``, ``bn1..3``, ``down_conv``, ``down_bn``; ``resnet`` and
-``fpn`` under the backbone), so converted weights load by path.
+``norm`` is the JAX ``_norm``: "frozen" (FrozenBatchNorm, the detection
+backbones) or "bn", a batch norm with trainable scale and bias (momentum 0.1
+in PyTorch's sense, Flax's 0.9; eps 1e-5) that, as the JAX module built with
+``use_running_average=True``, normalizes with its running statistics in
+training mode too and never moves them. As in JAX, block 0 of every stage
+has the projection (``down_conv``, ``down_bn``), for the basic block too.
+``trainable_mask`` is the JAX function of the same name, over the
+parameter names.
+
+The stem is the plain composition conv1 7x7/s2 -> norm -> ReLU -> 3x3/s2
+max pool; the JAX package computes the same function in a phase-split
+layout for the TPU, which is not ported. Submodule names follow the Flax
+module names (``conv1``, ``bn1``, ``layer{s}_block{i}`` with ``conv1..3``,
+``bn1..3``, ``down_conv``, ``down_bn``; ``resnet`` and ``fpn`` under the
+backbone), so converted weights load by path.
 
 ``fused`` ("off", "auto", "interpret") is the JAX knob of the same name: a
 stride-1 block in eval with a bf16 input of even height runs as one fused
@@ -32,10 +42,31 @@ from torch import nn
 from object_detectors_tpu_torch.kernels.fused_block import (
     PreparedBlock, fold_bn, fused_block_cuda, fused_bottleneck_reference,
 )
-from object_detectors_tpu_torch.models.common import FrozenBatchNorm, conv2d
+from object_detectors_tpu_torch.models.common import FrozenBatchNorm, conv2d, max_pool_same
 from object_detectors_tpu_torch.models.fpn import FeaturePyramidNetwork
 
 FUSED_MODES = ("off", "auto", "interpret")
+NORMS = ("frozen", "bn")
+
+
+class RunningBatchNorm(nn.BatchNorm2d):
+    """The JAX ``_norm(kind="bn")``: ``nn.BatchNorm(use_running_average=True,
+    momentum=0.9, epsilon=1e-5)``, which normalizes with the running
+    statistics in either mode and never updates them; its scale and bias
+    train."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)
+
+
+def _norm(features: int, kind: str) -> nn.Module:
+    if kind not in NORMS:
+        raise ValueError(f"norm must be one of {NORMS}, got {kind!r}")
+    return FrozenBatchNorm(features) if kind == "frozen" else RunningBatchNorm(features)
 
 
 def _version(t: torch.Tensor) -> int:
@@ -51,29 +82,31 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, planes: int, stride: int = 1,
-                 downsample: bool = False, fused: str = "off"):
+                 downsample: bool = False, fused: str = "off", norm: str = "frozen"):
         super().__init__()
         if fused not in FUSED_MODES:
             raise ValueError(f"fused must be one of {FUSED_MODES}, got {fused!r}")
         self.fused = fused
+        self.norm = norm
         self.stride = stride
         out = planes * self.expansion
         self.conv1 = nn.Conv2d(in_features, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(planes)
+        self.bn1 = _norm(planes, norm)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm(planes)
+        self.bn2 = _norm(planes, norm)
         self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
-        self.bn3 = FrozenBatchNorm(out)
+        self.bn3 = _norm(out, norm)
         self.downsample = downsample
         if downsample:
             self.down_conv = nn.Conv2d(in_features, out, 1, stride, bias=False)
-            self.down_bn = FrozenBatchNorm(out)
+            self.down_bn = _norm(out, norm)
         self._prepared = None  # (key, PreparedBlock): see prepared()
 
     def uses_fused(self, x: torch.Tensor) -> bool:
-        """The JAX gate: eval, stride 1, bf16 input, even height; "auto"
-        only on a CUDA tensor."""
+        """The JAX gate: eval, stride 1, frozen batch norm, bf16 input, even
+        height; "auto" only on a CUDA tensor."""
         return (self.fused != "off" and not self.training and self.stride == 1
+                and self.norm == "frozen"
                 and x.dtype == torch.bfloat16 and x.shape[2] % 2 == 0
                 and (self.fused == "interpret" or x.is_cuda))
 
@@ -125,36 +158,105 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
-    """Bottleneck ResNet; ``layers`` (3, 4, 6, 3) is ResNet-50. Returns
-    (C2, C3, C4, C5)."""
+class BasicBlock(nn.Module):
+    """Two 3x3 convs (the stride on the first) with their norms, and the
+    projection where ``downsample``."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), fused: str = "off"):
+    expansion = 1
+
+    def __init__(self, in_features: int, planes: int, stride: int = 1,
+                 downsample: bool = False, norm: str = "frozen"):
         super().__init__()
+        self.conv1 = nn.Conv2d(in_features, planes, 3, stride, padding=1, bias=False)
+        self.bn1 = _norm(planes, norm)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = _norm(planes, norm)
+        self.downsample = downsample
+        if downsample:
+            self.down_conv = nn.Conv2d(in_features, planes, 1, stride, bias=False)
+            self.down_bn = _norm(planes, norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(conv2d(x, self.conv1)))
+        out = self.bn2(conv2d(out, self.conv2))
+        identity = self.down_bn(conv2d(x, self.down_conv)) if self.downsample else x
+        return F.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """``layers`` (3, 4, 6, 3) with ``block="bottleneck"`` is ResNet-50,
+    (2, 2, 2, 2) with ``block="basic"`` ResNet-18. Returns (C2, C3, C4,
+    C5). ``fused`` applies to the bottleneck blocks with frozen batch norm
+    only."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), fused: str = "off",
+                 block: str = "bottleneck", norm: str = "frozen"):
+        super().__init__()
+        if block not in ("bottleneck", "basic"):
+            raise ValueError(f"block must be 'bottleneck' or 'basic', got {block!r}")
+        self.block, self.norm = block, norm
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.bn1 = _norm(64, norm)
         in_features, planes = 64, 64
         self.out_channels = []
         for stage, blocks in enumerate(layers):
             stride = 1 if stage == 0 else 2
             for i in range(blocks):
-                self.add_module(f"layer{stage + 1}_block{i}", Bottleneck(
-                    in_features, planes, stride if i == 0 else 1, downsample=i == 0,
-                    fused=fused))
-                in_features = planes * Bottleneck.expansion
+                stride_i = stride if i == 0 else 1
+                if block == "bottleneck":
+                    unit = Bottleneck(in_features, planes, stride_i, downsample=i == 0,
+                                      fused=fused, norm=norm)
+                else:
+                    unit = BasicBlock(in_features, planes, stride_i, downsample=i == 0,
+                                      norm=norm)
+                self.add_module(f"layer{stage + 1}_block{i}", unit)
+                in_features = planes * unit.expansion
             self.out_channels.append(in_features)
             planes *= 2
         self.layers = tuple(layers)
 
     def forward(self, x: torch.Tensor):
         x = F.relu(self.bn1(conv2d(x, self.conv1)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = max_pool_same(x, 3, 2)
         feats = []
         for stage, blocks in enumerate(self.layers):
             for i in range(blocks):
                 x = getattr(self, f"layer{stage + 1}_block{i}")(x)
             feats.append(x)
         return tuple(feats)
+
+
+def resnet18(norm: str = "frozen") -> ResNet:
+    return ResNet((2, 2, 2, 2), block="basic", norm=norm)
+
+
+def trainable_mask(model: nn.Module, trainable_layers: int = 3) -> dict[str, bool]:
+    """{parameter name: trains}, the JAX ``trainable_mask`` over the port's
+    parameter names: torchvision freezes the first (5 - trainable_layers)
+    of [layer4, layer3, layer2, layer1, conv1] and adds bn1 at
+    trainable_layers == 5 (backbone_utils.py:84-94). As in JAX, a name is
+    tested by substring: one outside "backbone" and "resnet" trains; one
+    inside trains when it holds a named layer (the FPN under "backbone"
+    holds none)."""
+    layers_to_train = ["layer4", "layer3", "layer2", "layer1", "conv1"][:trainable_layers]
+    if trainable_layers == 5:
+        layers_to_train.append("bn1")
+
+    def trains(name: str) -> bool:
+        if "backbone" not in name and "resnet" not in name:
+            return True
+        return any(layer in name for layer in layers_to_train)
+
+    return {name: trains(name) for name, _ in model.named_parameters()}
+
+
+def apply_trainable_mask(model: nn.Module, trainable_layers: int = 3) -> dict[str, bool]:
+    """Set each parameter's ``requires_grad`` from ``trainable_mask``;
+    returns the mask."""
+    mask = trainable_mask(model, trainable_layers)
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    return mask
 
 
 def set_fused(module: nn.Module, mode: str) -> None:

@@ -219,6 +219,38 @@ def _select_scaled(logits, level_sizes, cfg: RetinaNetConfig, tfidf):
     return [torch.cat(t, 1) for t in zip(*out)]
 
 
+def select_candidates(cls_logits: torch.Tensor, level_sizes, cfg: RetinaNetConfig,
+                      tfidf_post=1.0):
+    """The postprocess's select, dispatched on ``tfidf_post`` (see
+    ``retinanet_postprocess``): (scores, labels, anchor indices, valid)
+    [B, sum of the levels' top-k]."""
+    if isinstance(tfidf_post, (int, float)) and tfidf_post > 0:
+        return _select_fused(cls_logits, level_sizes, cfg, None, float(tfidf_post))
+    tfidf = torch.as_tensor(tfidf_post, dtype=torch.float32, device=cls_logits.device)
+    if tfidf.dim() == 0:
+        return _select_fused(cls_logits, level_sizes, cfg, tfidf, None)
+    return _select_scaled(cls_logits, level_sizes, cfg, tfidf)
+
+
+def cap_candidates(scores, labels, aidx, valid, cfg: RetinaNetConfig):
+    """The global pre-NMS cap: the ``pre_nms_candidates`` best valid
+    candidates over all levels (all of them when the cap is off or not
+    smaller)."""
+    if cfg.pre_nms_candidates and cfg.pre_nms_candidates < scores.shape[1]:
+        _, keep = radix_topk(torch.where(valid, scores, float("-inf")), cfg.pre_nms_candidates)
+        scores, labels, aidx, valid = (torch.gather(t, 1, keep)
+                                       for t in (scores, labels, aidx, valid))
+    return scores, labels, aidx, valid
+
+
+def decode_candidates(bbox_reg: torch.Tensor, anchors: torch.Tensor, aidx: torch.Tensor,
+                      image_size, cfg: RetinaNetConfig) -> torch.Tensor:
+    """The candidates' boxes [B, N, 4]: their deltas and anchors gathered,
+    decoded, clipped to the image."""
+    boxes = decode_boxes(gather_rows(bbox_reg, aidx).float(), anchors[aidx], cfg.box_weights)
+    return clip_boxes_to_image(boxes, image_size)
+
+
 def retinanet_postprocess(cls_logits: torch.Tensor, bbox_reg: torch.Tensor,
                           anchors: torch.Tensor, level_sizes, image_size,
                           cfg: RetinaNetConfig, tfidf_post=1.0, on_stage=None):
@@ -230,22 +262,10 @@ def retinanet_postprocess(cls_logits: torch.Tensor, bbox_reg: torch.Tensor,
     function dispatches. ``on_stage(name)`` is called after the select, the
     cap and decode, and the NMS."""
     mark = on_stage or (lambda name: None)
-    if isinstance(tfidf_post, (int, float)) and tfidf_post > 0:
-        scores, labels, aidx, valid = _select_fused(cls_logits, level_sizes, cfg, None,
-                                                    float(tfidf_post))
-    else:
-        tfidf = torch.as_tensor(tfidf_post, dtype=torch.float32, device=cls_logits.device)
-        if tfidf.dim() == 0:
-            scores, labels, aidx, valid = _select_fused(cls_logits, level_sizes, cfg, tfidf, None)
-        else:
-            scores, labels, aidx, valid = _select_scaled(cls_logits, level_sizes, cfg, tfidf)
+    scores, labels, aidx, valid = select_candidates(cls_logits, level_sizes, cfg, tfidf_post)
     mark("select")
-    if cfg.pre_nms_candidates and cfg.pre_nms_candidates < scores.shape[1]:
-        _, keep = radix_topk(torch.where(valid, scores, float("-inf")), cfg.pre_nms_candidates)
-        scores, labels, aidx, valid = (torch.gather(t, 1, keep)
-                                       for t in (scores, labels, aidx, valid))
-    boxes = decode_boxes(gather_rows(bbox_reg, aidx).float(), anchors[aidx], cfg.box_weights)
-    boxes = clip_boxes_to_image(boxes, image_size)
+    scores, labels, aidx, valid = cap_candidates(scores, labels, aidx, valid, cfg)
+    boxes = decode_candidates(bbox_reg, anchors, aidx, image_size, cfg)
     mark("cap+decode")
     out_boxes, out_scores, out_labels, _, out_valid = batched_nms(
         boxes, scores, labels, cfg.nms_thresh, cfg.detections_per_img, valid)

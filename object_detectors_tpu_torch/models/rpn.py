@@ -70,16 +70,22 @@ class RPNHead(nn.Module):
         return torch.cat(obj, 1), torch.cat(reg, 1), tuple(o.shape[1] for o in obj)
 
 
+def level_topk(objectness: torch.Tensor, level_sizes, pre_n: int):
+    """Each level's top-min(pre_n, level size) logits: ([(values, indices)
+    [B, k_l]], [k_l])."""
+    objs = objectness.split(level_sizes, 1)
+    ks = [min(pre_n, o.shape[1]) for o in objs]
+    return radix_topk_multi(objs, ks), ks
+
+
 def level_candidates(proposals: torch.Tensor, objectness: torch.Tensor, level_sizes,
                      image_size, cfg: RPNConfig, training: bool = False):
     """Per-level NMS candidates: (boxes [B, L, pre_n, 4] clipped, scores
     [B, L, pre_n] after the sigmoid, -inf where a box is dropped)."""
     pre_n = cfg.pre_nms_top_n_train if training else cfg.pre_nms_top_n_test
-    objs = objectness.split(level_sizes, 1)
-    ks = [min(pre_n, o.shape[1]) for o in objs]
+    tops, ks = level_topk(objectness, level_sizes, pre_n)
     logits, boxes = [], []
-    for (topv, topi), props, k in zip(radix_topk_multi(objs, ks),
-                                      proposals.split(level_sizes, 1), ks):
+    for (topv, topi), props, k in zip(tops, proposals.split(level_sizes, 1), ks):
         logits.append(F.pad(topv, (0, pre_n - k), value=float("-inf")))
         boxes.append(F.pad(gather_rows(props, topi), (0, 0, 0, pre_n - k)))
     logits = torch.stack(logits, 1)
@@ -98,14 +104,26 @@ def filter_proposals(proposals: torch.Tensor, objectness: torch.Tensor, level_si
     proposals, objectness = proposals.detach(), objectness.detach()
     boxes, scores = level_candidates(proposals, objectness, level_sizes, image_size, cfg,
                                      training)
+    return merge_survivors(boxes, level_survivors(boxes, scores, cfg),
+                           cfg.post_nms_top_n_train if training else cfg.post_nms_top_n_test)
+
+
+def level_survivors(boxes: torch.Tensor, scores: torch.Tensor, cfg: RPNConfig) -> torch.Tensor:
+    """Greedy NMS on each level's candidates: their scores [B, L * pre_n],
+    -inf where a box is suppressed or dropped."""
     b, levels, pre_n = scores.shape
     kept = fixedpoint_keep(boxes.reshape(b * levels, pre_n, 4),
                            scores.reshape(b * levels, pre_n), cfg.nms_thresh)
-    flat = torch.where(kept.reshape(b, -1), scores.reshape(b, -1), float("-inf"))
-    topv, topi = radix_topk(flat, cfg.post_nms_top_n_train if training
-                            else cfg.post_nms_top_n_test)
+    return torch.where(kept.reshape(b, -1), scores.reshape(b, -1), float("-inf"))
+
+
+def merge_survivors(boxes: torch.Tensor, flat: torch.Tensor, post_n: int):
+    """The ``post_n`` best survivors over all levels: (boxes [B, post_n, 4],
+    scores, valid); invalid rows hold zeros."""
+    topv, topi = radix_topk(flat, post_n)
     valid = torch.isfinite(topv)
-    out_boxes = torch.where(valid[..., None], gather_rows(boxes.reshape(b, -1, 4), topi), 0.0)
+    out_boxes = torch.where(valid[..., None],
+                            gather_rows(boxes.reshape(boxes.shape[0], -1, 4), topi), 0.0)
     return out_boxes, torch.where(valid, topv, 0.0), valid
 
 

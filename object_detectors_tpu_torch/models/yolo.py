@@ -27,21 +27,27 @@ from object_detectors_tpu_torch.models.fpn import FeaturePyramidNetwork
 class SPP(nn.Module):
     """Spatial pyramid pooling on each scale: the concat of the map and its
     max pools (``pyramids[k]`` windows, stride 1, same padding), then a 1x1
-    conv with bias (``bottleneck{k}``) back to the map's width. The Flax
-    module's ``bottleneck=False`` path (the concat passed on, a width the
-    head does not take) is not ported."""
+    conv with bias (``bottleneck{k}``) back to the map's width. With
+    ``bottleneck=False`` only the coarsest scale (k = 0) has it, as in the
+    Flax module; the finer ones pass the concat on."""
 
-    def __init__(self, channels: Sequence[int], pyramids: Sequence[Sequence[int]]):
+    def __init__(self, channels: Sequence[int], pyramids: Sequence[Sequence[int]],
+                 bottleneck: bool = True):
         super().__init__()
         self.pyramids = tuple(tuple(p) for p in pyramids)
+        self.bottleneck = bottleneck
         for k, (c, windows) in enumerate(zip(channels, self.pyramids)):
-            self.add_module(f"bottleneck{k}", nn.Conv2d(c * (1 + len(windows)), c, 1))
+            if bottleneck or k == 0:
+                self.add_module(f"bottleneck{k}", nn.Conv2d(c * (1 + len(windows)), c, 1))
 
     def forward(self, feats):
         # feats coarse -> fine: (x0 1024 ch, x1 512, x2 256)
-        return tuple(conv2d(torch.cat([x] + [max_pool_same(x, w) for w in windows], 1),
-                            getattr(self, f"bottleneck{k}"))
-                     for k, (x, windows) in enumerate(zip(feats, self.pyramids)))
+        outs = []
+        for k, (x, windows) in enumerate(zip(feats, self.pyramids)):
+            cat = torch.cat([x] + [max_pool_same(x, w) for w in windows], 1)
+            outs.append(conv2d(cat, getattr(self, f"bottleneck{k}"))
+                        if self.bottleneck or k == 0 else cat)
+        return tuple(outs)
 
 
 class YoloNeck(nn.Module):

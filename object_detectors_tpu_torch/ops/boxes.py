@@ -158,3 +158,18 @@ def decode_boxes(rel_codes: torch.Tensor, boxes: torch.Tensor,
     pred_h = torch.exp(dh) * heights
     return torch.stack([pred_cx - 0.5 * pred_w, pred_cy - 0.5 * pred_h,
                         pred_cx + 0.5 * pred_w, pred_cy + 0.5 * pred_h], -1)
+
+
+class BoxCoder:
+    """Stateless twin of the reference BoxCoder: ``encode_boxes`` and
+    ``decode_boxes`` with fixed ``weights`` and ``bbox_xform_clip``."""
+
+    def __init__(self, weights=(1.0, 1.0, 1.0, 1.0), bbox_xform_clip: float = BBOX_XFORM_CLIP):
+        self.weights = tuple(float(w) for w in weights)
+        self.bbox_xform_clip = bbox_xform_clip
+
+    def encode(self, reference_boxes: torch.Tensor, proposals: torch.Tensor) -> torch.Tensor:
+        return encode_boxes(reference_boxes, proposals, self.weights)
+
+    def decode(self, rel_codes: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        return decode_boxes(rel_codes, boxes, self.weights, self.bbox_xform_clip)

@@ -8,7 +8,8 @@ module names, so each leaf maps by its path: conv ``kernel`` HWIO ->
 ``weight`` / ``bias`` and ``batch_stats`` ``mean`` / ``var`` ->
 ``running_mean`` / ``running_var``; for the ResNet-FPN detectors, the
 ``frozen`` collection's leaves are the FrozenBatchNorm buffers of the same
-names.
+names; a ResNet with trainable batch norm (``norm="bn"``) maps its ``scale``
+/ ``bias`` and ``batch_stats`` as YOLO's.
 
 A Flax ``ConvTranspose`` correlates without flipping its kernel, so its
 (kh, kw, in, out) kernel becomes a ``ConvTranspose2d`` weight [in, out, kh,
@@ -96,6 +97,23 @@ def flax_ssd_to_torch(params) -> dict[str, torch.Tensor]:
     """Flax ``SSD300`` parameters -> a state dict for ``models.ssd.SSD300``
     (the VGG's ``scale_weight`` by its name)."""
     return _flax_frozen_bn_to_torch(params, {}, bare=("scale_weight",))
+
+
+def flax_resnet_to_torch(params, frozen=None, batch_stats=None) -> dict[str, torch.Tensor]:
+    """Flax ``ResNet`` (or ``BackboneWithFPN``) variables of either block and
+    either norm -> a state dict for ``models.resnet.ResNet`` (or
+    ``BackboneWithFPN``): convs by path; with ``norm="frozen"`` the
+    ``frozen`` collection's buffers, with ``norm="bn"`` the batch norms'
+    ``scale`` / ``bias`` parameters and their ``batch_stats``."""
+    state = _flax_frozen_bn_to_torch(params, frozen or {}, bare=("scale",))
+    for name in [k for k in state if k.endswith(".scale")]:
+        state[name[:-len("scale")] + "weight"] = state.pop(name)
+    for path, value in _leaves(batch_stats or {}):
+        *mod, leaf = path
+        state[".".join(mod + [_BN_STAT[leaf]])] = torch.from_numpy(np.array(value, np.float32))
+        if leaf == "mean":
+            state[".".join(mod + ["num_batches_tracked"])] = torch.tensor(0)
+    return state
 
 
 def _flax_frozen_bn_to_torch(params, frozen, transposed=(), bare=()) -> dict[str, torch.Tensor]:

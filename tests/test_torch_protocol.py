@@ -15,6 +15,7 @@ categories, the 12 stats within 1e-6, and mAP above 0."""
 
 import csv
 import inspect
+import json
 import pathlib
 
 import jax
@@ -116,7 +117,8 @@ def test_run_protocol_rows_are_the_reference_s(tmp_path):
         written = list(csv.DictReader(f))
     assert list(written[0]) == reference_keys == list(B.PROTOCOL_FIELDS)
     assert len(rows) == len(written) == 1 and rows[0]["batch"] == 4
-    assert set(rows[0]) == set(reference_keys) | {"detections"}
+    assert set(rows[0]) == set(reference_keys) | {"detections", "img_size"}
+    assert rows[0]["img_size"] == meta["img_size"]
     assert rows[0]["detections"] >= 0 and 0.0 <= rows[0]["map"] <= 1.0
     assert rows[0]["app_time"] >= rows[0]["forw_time"] + rows[0]["cpu_time"] - 1e-3
 
@@ -125,3 +127,39 @@ def test_protocol_writes_under_output_by_default():
     default = inspect.signature(B.run_protocol).parameters["out_csv"].default
     assert pathlib.Path(default).parent == ROOT / "output"
     assert "output/" in (ROOT / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("with_artifact", [True, False], ids=["trained", "seeded"])
+def test_bench_protocol_scores_the_trained_artifact(tmp_path, monkeypatch, capsys,
+                                                    with_artifact):
+    """``bench --protocol`` hands ``run_protocol`` the artifact of
+    ``make_artifacts`` (model and meta) when one is present, as the root
+    bench does, and nothing otherwise; its line says which weights it
+    scored. ``run_protocol`` is replaced by a recorder."""
+    from object_detectors_tpu_torch.analysis import make_artifacts as MA
+
+    monkeypatch.setattr(MA, "ARTIFACTS", str(tmp_path))
+    meta = {"model": "yolo_tiny", "num_classes": 4, "img_size": 64,
+            "backbone_layers": [1, 1, 1, 1, 1]}
+    saved = init_yolo_(YoloHead(4, 3, (1, 1, 1, 1, 1)), seed=5)
+    if with_artifact:
+        MA._save(str(tmp_path / "synthetic_yolo.pt"), saved.state_dict(), meta)
+    got = {}
+
+    def recorder(batch_sizes, **kwargs):
+        got.update(kwargs, batch_sizes=batch_sizes)
+        return [{"batch": 2, "map": 0.5}]
+
+    monkeypatch.setattr(B, "run_protocol", recorder)
+    B.main(["--protocol", "--device", "cpu", "--batch-sizes", "2"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["batch_sizes"] == (2,) and str(got["device"]) == "cpu"
+    assert line["value"] == 0.5 and line["card"] == "none"
+    if with_artifact:
+        assert line["weights"] == "trained" and got["meta"] == meta
+        assert isinstance(got["model"], YoloHead)
+        for k, v in saved.state_dict().items():
+            assert torch.equal(got["model"].state_dict()[k], v), k
+    else:
+        assert line["weights"] == "seeded"
+        assert got["model"] is None and got["meta"] is None

@@ -198,7 +198,7 @@ def test_make_artifacts_yolo_round_trips(tmp_path, monkeypatch):
     monkeypatch.setattr(MA, "ARTIFACTS", str(tmp_path))
     MA.main(["--yolo", "--epochs", "1", "--device", "cpu", "dataset.num_images=8",
              "precision=f32", "dataset.canvas_size=96"])
-    model, meta = MA.load_yolo_artifact()
+    model, meta = MA.load_yolo_artifact("cpu")
     assert isinstance(model, YoloHead)
     assert meta["img_size"] == 64 and meta["num_classes"] == 4 and np.isfinite(meta["best_map"])
     assert "epochs=1" in meta["overrides"]
@@ -206,4 +206,4 @@ def test_make_artifacts_yolo_round_trips(tmp_path, monkeypatch):
     for k, t in model.state_dict().items():
         assert torch.equal(t, saved[k]), k
     (tmp_path / "synthetic_yolo.pt").write_bytes(b"not a checkpoint")
-    assert MA.load_yolo_artifact() == (None, None)
+    assert MA.load_yolo_artifact("cpu") == (None, None)
