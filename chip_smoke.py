@@ -106,7 +106,8 @@ Phases, each printed as JSON lines:
    max(|plain|, 1)), each RoI's route (level; staged or direct) against
    ``backward_routes``; at the training shape its time (the wrapper, the
    zeroing alone, and the device time of the zeroing, the kernel and the
-   rounding from a trace) beside the plain version's and the bound from
+   rounding from a trace, or where CUPTI gives back only empty traces the
+   wrapper's time less the zeroing's) beside the plain version's and the bound from
    the bytes it must move and the operations its samples need; its
    kernel_time line adds the reductions it issues beside a scatter's
    corner updates, both counted on the host, which the kernels line
@@ -202,7 +203,23 @@ Phases, each printed as JSON lines:
    the launches of an eval batch, each kernel held against its plain
    version at one CLI step's own inputs (``check_frcnn_train_kernels``), a
    finite mAP, ms a step and an eval batch.
-34. analysis: the ten timers of ``object_detectors_tpu_torch/analysis/``
+34. ddp: data-parallel training over two processes on the one card, over
+   gloo (NCCL takes one rank a device), each process started by this
+   script (``--ddp-rank``) and running both CLIs' ``main(argv)`` as a user's
+   ``torchrun`` would: yolo_cli416's configuration (Darknet-53, 416², 32
+   images, 8 a global step) and frcnn_cli800's (R50-FPN, 800², 2 images a
+   rank), one epoch each in f32 with TF32 off, output under
+   chiprun_out/ddp. Each rank's launches counted from 0 before each run:
+   one RoIAlign forward, backward and NMS a Faster R-CNN step, one NMS a
+   YOLO eval batch; only rank 0 writes checkpoints; the ranks' parameters
+   equal at the end; the first step's losses (the mean of the ranks'
+   shares) within DDP_LOSS_RTOL and its gradients (averaged by DDP) against
+   one process's step on the same global batch from the same seeded
+   weights and sampler draws, the YOLO's as a whole within
+   YOLO_F32_UPDATE_NORM, Faster R-CNN's per tensor within
+   FRCNN_UPDATE_SHARE; ms a step and an eval batch of each rank beside the
+   card's name and power limit.
+35. analysis: the ten timers of ``object_detectors_tpu_torch/analysis/``
    (``ANALYSIS_TIMERS``: darknet_ablate, backbone_ablate --fused
    --stem-detail, frcnn_ablate, retinanet_ablate --fused, rpnfilter_ablate,
    roialign_bench, topk_bench, decode_bench, train_ablate, serving_ablate)
@@ -303,6 +320,24 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(fn, iters: int, tries: int = 3) -> list:
+    """The device events of a torch.profiler trace of ``iters`` calls of
+    fn. CUPTI now and then hands back a trace that holds no device event
+    at all, though the launches ran (their counts and results show it): such
+    a trace is taken again, up to ``tries`` times in all; [] if every one
+    came back empty."""
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return []
 
 
 def check(cond: bool, what: str):
@@ -686,18 +721,18 @@ MEASURED_NMS = ("ms", "plain_ms", "bound_ms", "bound_by", "phases_ms")
 
 def nms_phase_ms(KN, boxes, scores, thr, k, iters=10):
     """The device time of each of the NMS kernel's three launches (sort,
-    IoU mask, sweep) a call, from a torch.profiler trace."""
+    IoU mask, sweep) a call, from a torch.profiler trace; "not measured"
+    where every trace came back empty (``device_events``)."""
     names = {"nms_sort_kernel": "sort", "nms_mask_kernel": "mask", "nms_sweep_kernel": "sweep"}
     KN.greedy_nms_cuda(boxes, scores, thr, k)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            KN.greedy_nms_cuda(boxes, scores, thr, k)
-        torch.cuda.synchronize()
+    events = device_events(lambda: KN.greedy_nms_cuda(boxes, scores, thr, k), iters)
+    if not events:
+        emit(phase="trace", what="NMS phases", note="every trace came back empty")
+        return dict.fromkeys(names.values(), "not measured")
     ms = dict.fromkeys(names.values(), 0.0)
-    for e in prof.events():
+    for e in events:
         phase = next((v for key, v in names.items() if key in e.name), None)
-        if e.device_type == torch.autograd.DeviceType.CUDA and phase:
+        if phase:
             ms[phase] += e.device_time / 1e3 / iters
     check(all(t > 0 for t in ms.values()), f"the NMS trace misses a phase: {ms}")
     return ms
@@ -1437,23 +1472,28 @@ def roi_backward_time(KR, KB, shapes, boxes, cot, size, iters=20):
              zeroing_ms=cuda_ms(lambda: torch.zeros(total, dtype=torch.float32,
                                                     device="cuda"), iters))
     parts = {"roi_align_backward_kernel": "kernel", "round_to_bf16_kernel": "rounding"}
-    device = {"kernel": 0.0, "rounding": 0.0, "zeroing": 0.0}
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            KB.multiscale_roi_align_backward_cuda(*args, dtype=dtype)
-        torch.cuda.synchronize()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    events = device_events(lambda: KB.multiscale_roi_align_backward_cuda(*args, dtype=dtype),
+                           iters)
+    if events:
+        device = {"kernel": 0.0, "rounding": 0.0, "zeroing": 0.0}
+        for e in events:
             part = next((v for key, v in parts.items() if key in e.name), "zeroing")
             device[part] += e.device_time / 1e3 / iters
-    check(device["kernel"] > 0, f"the RoIAlign backward trace misses its kernel: {device}")
+        check(device["kernel"] > 0, f"the RoIAlign backward trace misses its kernel: {device}")
+        kernel_only = device["kernel"]
+    else:
+        # every trace came back empty: the CUDA events' wrapper time less the
+        # zeroing's, which holds the rounding pass too in bf16
+        device = {"kernel": "not measured", "rounding": "not measured",
+                  "zeroing": "not measured", "kernel_only_ms_from": "CUDA events: ms - zeroing_ms"}
+        kernel_only = t["ms"] - t["zeroing_ms"]
+        emit(phase="trace", what="RoIAlign backward parts", note="every trace came back empty")
     route = torch.empty(boxes.shape[:2], dtype=torch.uint8, device="cuda")
     KB.multiscale_roi_align_backward_cuda(*args, dtype=dtype, route=route)
     staged = (route % 2).bool()
     moved, ops, atomics = roi_backward_work(shapes, boxes, cot, size)
     bound, bound_by = time_bound(moved, ops)
-    return dict(t, device_ms=device, kernel_only_ms=device["kernel"], bound_ms=bound,
+    return dict(t, device_ms=device, kernel_only_ms=kernel_only, bound_ms=bound,
                 bound_by=bound_by, bytes=moved, operations=ops, atomics=atomics,
                 global_reductions=KR.backward_reductions(shapes, boxes, (size, size), out_size),
                 staged_rois=int(staged.sum()), direct_rois=int((~staged).sum()))
@@ -2504,6 +2544,307 @@ def phase_frcnn_cli(KR, KB, KN):
     emit(phase="frcnn_cli800", batch=2, img=800, **fields)
     return fields
 
+DDP_WORLD = 2
+# the ddp phase's two runs: yolo_cli416's and frcnn_cli800's configurations
+# in float32, the YOLO at 8 images a global step, Faster R-CNN at 2 a rank
+DDP_YOLO = ["dataset=synthetic", "backbone=darknet53", "dataset.inp_dim=416",
+            "dataset.num_images=32", "dataset.tr_batch_size=8", "dataset.ts_batch_size=8",
+            "epochs=1", "metric=mAP", "precision=f32"]
+# the first step at world 2 against world 1 on the same global batch: the
+# losses as the Faster R-CNN ones of train/tiny_steps.py (the world-2 batch
+# norms take E[x²] - E[x]² over 346 112 values a channel at 416², the
+# world-1 ones a Welford sum, and cuDNN picks its algorithms by batch)
+DDP_LOSS_RTOL = 1e-3
+# what starts a rank (with its rank and directory), and the ranks' device:
+# a rehearsal on the CPU swaps both
+DDP_RANK_COMMAND = [os.path.abspath(__file__), "--ddp-rank"]
+DDP_DEVICE = "cuda"
+DDP_FRCNN = ["--dataset", "synthetic", "--model", "fasterrcnn_resnet50_fpn", "--epochs", "1",
+             "--batch-size", str(2 * DDP_WORLD), "--image-size", "800", "--max-boxes", "8"]
+
+
+def host_copy(x):
+    """Tensors (in dicts, lists and tuples too) copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: host_copy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(host_copy(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def first_call(owner, name, keep):
+    """While inside, the first call of ``owner.name`` is followed by
+    ``keep(args, kwargs, out)``."""
+    wrapped = getattr(owner, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        out = wrapped(*args, **kwargs)
+        if not seen:
+            seen.append(True)
+            keep(args, kwargs, out)
+        return out
+
+    setattr(owner, name, spy)
+    try:
+        yield
+    finally:
+        setattr(owner, name, wrapped)
+
+
+def ddp_worker(rank: int, directory: str) -> int:
+    """One rank of the ddp phase (``chip_smoke.py --ddp-rank RANK DIR``): joins
+    a gloo group through a file:// rendezvous in DIR on the one card, runs
+    the YOLO CLI and then detection_main's CLI as ``plan.json`` there says,
+    TF32 off, and writes ``rank<RANK>.pt``: each run's launches of the three
+    kernels of its path a train step and an eval batch (counted from 0 just
+    before the run), ms a step, the checkpoints it wrote, its first step's
+    inputs and loss share, rank 0 also that step's gradients (averaged by
+    DDP), and a fingerprint of the parameters at the end."""
+    with open(os.path.join(directory, "plan.json")) as f:
+        plan = json.load(f)
+    if plan["device"] == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(directory, 'rendezvous')}", rank=rank,
+        world_size=DDP_WORLD)
+    from object_detectors_tpu_torch import detection_main as DM
+    from object_detectors_tpu_torch import main as M
+    from object_detectors_tpu_torch.kernels import nms as KN
+    from object_detectors_tpu_torch.kernels import roi_align as KR
+    from object_detectors_tpu_torch.kernels import roi_align_bwd as KB
+    from object_detectors_tpu_torch.models.common import tf32_off
+    from object_detectors_tpu_torch.train import checkpoint as ckpt_lib
+
+    kernels = {"roi_align": KR, "roi_align_bwd": KB, "nms": KN}
+    writes = []
+    save_raw = ckpt_lib.CheckpointManager.save_raw
+
+    def spy_save(self, tag, payload, epoch, metrics):
+        writes.append(os.path.join(os.path.basename(os.path.dirname(self.directory)), tag))
+        return save_raw(self, tag, payload, epoch, metrics)
+
+    def fingerprint(model):
+        return {k: (float(p.detach().double().sum()), float(p.detach().double().abs().sum()))
+                for k, p in ckpt_lib.unwrapped(model).named_parameters()}
+
+    def keeper(run, out, batch_of, loss_of):
+        def keep(args, kwargs, result):
+            state = args[0]
+            out[run] = {"batch": host_copy(batch_of(args, kwargs)),
+                        "loss_share": host_copy(loss_of(result))}
+            if rank == 0:
+                out[run]["grads"] = {
+                    k: p.grad.detach().cpu().clone()
+                    for k, p in ckpt_lib.unwrapped(state.model).named_parameters()
+                    if p.grad is not None}
+        return keep
+
+    first = {}
+    result = {"rank": rank, "writes": writes}
+    ckpt_lib.CheckpointManager.save_raw = spy_save
+    try:
+        with tf32_off():
+            for m in kernels.values():
+                m.launches = 0
+            with (per_call(M.trainer, "yolo_train_step_ingest", kernels) as steps,
+                  per_call(M, "decode_and_nms", kernels) as evals,
+                  first_call(M.trainer, "yolo_train_step_ingest", keeper(
+                      "yolo", first, lambda a, kw: (a[1:], kw),
+                      lambda r: (r[1]["loss"], r[1]["sub_losses"], r[1]["stats"])))):
+                state, best = M.main(["train", *plan["yolo"]])
+            result["yolo"] = {
+                "launches": {k: m.launches for k, m in kernels.items()},
+                "per_step": [c["launches"] for c in steps],
+                "per_eval_batch": [c["launches"] for c in evals],
+                "ms_per_train_step": steady_ms(steps), "ms_per_eval_batch": steady_ms(evals),
+                "best": best, "fingerprint": fingerprint(state.model)}
+            for m in kernels.values():
+                m.launches = 0
+            with (per_call(DM.trainer, "detection_train_step", kernels) as steps,
+                  per_call(DM.ModelAdapter, "detect", kernels) as evals,
+                  first_call(DM.trainer, "detection_train_step", keeper(
+                      "frcnn", first, lambda a, kw: a[2], lambda r: r[2]))):
+                state = DM.main(plan["frcnn"])
+            result["frcnn"] = {
+                "launches": {k: m.launches for k, m in kernels.items()},
+                "per_step": [c["launches"] for c in steps],
+                "per_eval_batch": [c["launches"] for c in evals],
+                "ms_per_train_step": steady_ms(steps), "ms_per_eval_batch": steady_ms(evals),
+                "finite": state is not None,
+                "fingerprint": None if state is None else fingerprint(state.model)}
+    finally:
+        ckpt_lib.CheckpointManager.save_raw = save_raw
+    result["first"] = first
+    torch.save(result, os.path.join(directory, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def interleave(parts):
+    """The global batch of the ranks' batches (rank r's i-th image is image
+    r + world i, as data/coco.py:shard_indices deals images out)."""
+    out = torch.empty((sum(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:]),
+                      dtype=parts[0].dtype)
+    for r, p in enumerate(parts):
+        out[r::len(parts)] = p
+    return out
+
+
+def ddp_reference_steps(plan, ranks, device):
+    """The world-1 step on the ranks' first global batch, from the weights
+    each CLI seeds: (YOLO's metrics and gradients, Faster R-CNN's losses and
+    gradients), TF32 off."""
+    from object_detectors_tpu_torch import detection_main as DM
+    from object_detectors_tpu_torch import main as M
+    from object_detectors_tpu_torch.models.common import tf32_off
+    from object_detectors_tpu_torch.train import optim as optim_lib
+
+    def grads(model):
+        return {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                if p.grad is not None}
+
+    on = lambda x: x.to(device) if isinstance(x, torch.Tensor) else x  # noqa: E731
+    with tf32_off():
+        cfg = M.load_config(M.CONFIG_DIR, plan["yolo"])
+        model = M.build_model(cfg).to(device)
+        state = M.trainer.create_yolo_train_state(model, M._optimizer(cfg, 1))
+        (args, kwargs) = ranks[0]["first"]["yolo"]["batch"]
+        batch = [interleave([r["first"]["yolo"]["batch"][0][i] for r in ranks]).to(device)
+                 for i in range(5)]
+        _, metrics = M.trainer.yolo_train_step_ingest(
+            state, *batch, *args[5:], **{k: on(v) for k, v in kwargs.items()})
+        yolo = ({k: metrics[k].cpu() for k in ("loss", "sub_losses", "stats")}, grads(model))
+        del state, model
+        argv = plan["frcnn"]  # the adapter detection_main.main builds from it
+        small = "--small" in argv
+        ad = DM.ModelAdapter("fasterrcnn_resnet50_fpn", 5,
+                             int(argv[argv.index("--image-size") + 1]),
+                             resnet_layers=(1, 1, 1, 1) if small else (3, 4, 6, 3), small=small,
+                             device=device)
+        tx = optim_lib.make_optimizer(optim_lib.OptimizerConfig("sgd", 0.02 / 8, 1e-4, 0.9),
+                                      optim_lib.SchedulerConfig())
+        state = M.trainer.create_detection_train_state(ad, tx)
+        batch = {k: interleave([r["first"]["frcnn"]["batch"][k] for r in ranks]).to(device)
+                 for k in ranks[0]["first"]["frcnn"]["batch"]}
+        _, _, losses = M.trainer.detection_train_step(
+            state, ad, batch, generator=M.trainer.draw_generator(0, 0, device))
+        frcnn = ({k: v.cpu() for k, v in losses.items()}, grads(ad.model))
+    return yolo, frcnn
+
+
+def phase_ddp(KR, KB, KN):
+    """ddp: data-parallel training over two processes on the one card (gloo:
+    NCCL takes one rank a device), yolo_cli416's and frcnn_cli800's
+    configurations through the CLIs in float32 with TF32 off (module
+    docstring, phase 34). Returns the launches of both ranks by kernel.
+    The first step's gradients stand for its update: the Faster R-CNN
+    CLI's warmup starts at 1/1000 of its rate, so that update is at the
+    float32 rounding of the parameters."""
+    import shutil
+    import tempfile
+
+    from object_detectors_tpu_torch.train import tiny_steps as TS
+
+    out = os.path.abspath(f"{CLI_OUT}/ddp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ddp")
+    plan = {"device": DDP_DEVICE, "yolo": [*DDP_YOLO, f"output_dir={out}/yolo"],
+            "frcnn": [*DDP_FRCNN, "--output-dir", f"{out}/frcnn"]}
+    with open(os.path.join(directory, "plan.json"), "w") as f:
+        json.dump(plan, f)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    logs = [open(f"{out}/rank{r}.log", "w") for r in range(DDP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *DDP_RANK_COMMAND, str(r), directory],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DDP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"{out}/rank{r}.log") as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        check(p.returncode == 0, f"ddp rank {r} exited {p.returncode}")
+    ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+    shutil.rmtree(directory)
+
+    # only rank 0 writes checkpoints: last and best of the YOLO, model_0 and
+    # last of Faster R-CNN
+    check(ranks[1]["writes"] == [], f"ddp rank 1 wrote checkpoints {ranks[1]['writes']}")
+    check({"yolo/last", "yolo/best", "frcnn/model_0", "frcnn/last"} <= set(ranks[0]["writes"]),
+          f"ddp rank 0 wrote {ranks[0]['writes']}")
+    for tag in ("yolo/checkpoints/last", "frcnn/checkpoints/last"):
+        check(os.path.exists(f"{out}/{tag}.pt"), f"ddp wrote no {tag}.pt")
+    # one RoIAlign forward, backward and NMS launch a Faster R-CNN step in
+    # each rank; the YOLO's eval batches one NMS launch each
+    launches = {k: 0 for k in ("roi_align", "roi_align_bwd", "nms")}
+    for r in ranks:
+        fr, yo = r["frcnn"], r["yolo"]
+        check(fr["finite"], f"ddp rank {r['rank']}'s Faster R-CNN stopped on a non-finite loss")
+        check(len(fr["per_step"]) == 16 // (2 * DDP_WORLD) and all(
+            c == {"roi_align": 1, "roi_align_bwd": 1, "nms": 1} for c in fr["per_step"]),
+            f"ddp rank {r['rank']} Faster R-CNN launches a step: {fr['per_step']}")
+        check(len(yo["per_step"]) == 32 // 8 and all(c["nms"] == 0 for c in yo["per_step"])
+              and yo["per_eval_batch"] and all(c["nms"] == 1 for c in yo["per_eval_batch"]),
+              f"ddp rank {r['rank']} YOLO NMS launches: {yo['per_step']}, "
+              f"{yo['per_eval_batch']}")
+        for k in launches:
+            launches[k] += fr["launches"][k] + yo["launches"][k]
+    for run in ("yolo", "frcnn"):
+        check(ranks[0][run]["fingerprint"] == ranks[1][run]["fingerprint"],
+              f"ddp: the ranks' {run} parameters differ at the end")
+
+    # the first step against one process's on the same global batch
+    yolo_ref, frcnn_ref = ddp_reference_steps(plan, ranks, plan["device"])
+    shares = [r["first"]["yolo"]["loss_share"] for r in ranks]
+    for i, key in enumerate(("loss", "sub_losses", "stats")):
+        mean = (shares[0][i] + shares[1][i]) / 2
+        emit(phase="ddp", what=f"yolo first step {key}, world 2 against world 1",
+             max_abs_err=(mean - yolo_ref[0][key]).abs().max().item(),
+             max_abs_ref=yolo_ref[0][key].abs().max().item())
+        torch.testing.assert_close(mean, yolo_ref[0][key], rtol=DDP_LOSS_RTOL, atol=1e-6)
+    gap = TS.tensor_gap(yolo_ref[1], ranks[0]["first"]["yolo"]["grads"])
+    emit(phase="ddp", what="yolo first step gradients, world 2 against world 1", **gap,
+         norm_share_tolerance=TS.YOLO_F32_UPDATE_NORM)
+    check(gap["norm_share"] <= TS.YOLO_F32_UPDATE_NORM,
+          f"ddp: YOLO gradients off by {gap['norm_share']:.3g} of their norm")
+    fshares = [r["first"]["frcnn"]["loss_share"] for r in ranks]
+    for key, ref in frcnn_ref[0].items():
+        mean = (fshares[0][key] + fshares[1][key]) / 2
+        check(abs(mean.item() - ref.item()) <= DDP_LOSS_RTOL * abs(ref.item()),
+              f"ddp: Faster R-CNN {key} {mean.item()} at world 2, {ref.item()} at world 1")
+    gap = TS.tensor_gap(frcnn_ref[1], ranks[0]["first"]["frcnn"]["grads"])
+    emit(phase="ddp", what="frcnn first step gradients, world 2 against world 1", **gap,
+         worst_share_tolerance=TS.FRCNN_UPDATE_SHARE)
+    check(gap["worst_share"] <= TS.FRCNN_UPDATE_SHARE,
+          f"ddp: Faster R-CNN gradient of {gap['at']} off by {gap['worst_share']:.3g}")
+    drop_weights(out)
+    fields = {run: {k: [r[run][k] for r in ranks] for k in ("ms_per_train_step",
+                                                             "ms_per_eval_batch")}
+              for run in ("yolo", "frcnn")}
+    emit(phase="ddp", card=card_line(), world=DDP_WORLD, backend="gloo", seconds=seconds,
+         yolo={"batch_per_rank": 8 // DDP_WORLD, "img": 416, **fields["yolo"]},
+         frcnn={"batch_per_rank": 2, "img": 800, **fields["frcnn"]}, launches=launches,
+         writes_rank0=ranks[0]["writes"])
+    return launches
+
+
 # each analysis timer's arguments in the analysis phase: its default
 # (full-width) shapes, few iterations, the kernels' options on
 ANALYSIS_TIMERS = {
@@ -2699,6 +3040,7 @@ def main() -> int:
                                      for k, v in dm.items()})
     yolo_cli = phase_yolo_cli(N, KN)
     frcnn_cli = phase_frcnn_cli(KR, KB, KN)
+    ddp = phase_ddp(KR, KB, KN)
     analysis = phase_analysis(KR, KN, KF, P)
 
     branches = ("maskrcnn800", "kprcnn800")
@@ -2709,6 +3051,7 @@ def main() -> int:
                                "frcnn_train800": frcnn_train["launches"]["roi_align"],
                                **{p: dm[p]["launches"]["roi_align"] for p in branches + trains},
                                "frcnn_cli800": frcnn_cli["launches"]["roi_align"],
+                               "ddp": ddp["roi_align"],
                              **{f"analysis {t}": analysis[t]["roi_align"]
                                 for t in ("frcnn_ablate", "roialign_bench")}}
     roi["branch_14x14"] = {p: dm[p]["roi_align_14x14"] for p in branches}
@@ -2726,6 +3069,7 @@ def main() -> int:
                                "ssd300": dm["ssd300"]["launches"],
                                "yolo_cli416": yolo_cli["launches"],
                                "frcnn_cli800": frcnn_cli["launches"]["nms"],
+                               "ddp": ddp["nms"],
                                **{f"analysis {t}": analysis[t]["nms"]
                                   for t in ("frcnn_ablate", "retinanet_ablate",
                                             "rpnfilter_ablate", "serving_ablate")}}
@@ -2791,10 +3135,11 @@ def main() -> int:
         "replaces": "object_detectors_tpu/ops/roi_align.py:381 (XLA VJP, no pallas_call)",
         "launches": (frcnn_train["launches"]["roi_align_bwd"]
                      + sum(dm[p]["launches"]["roi_align_bwd"] for p in trains)
-                     + frcnn_cli["launches"]["roi_align_bwd"]),
+                     + frcnn_cli["launches"]["roi_align_bwd"] + ddp["roi_align_bwd"]),
         "launches_by_path": {"frcnn_train800": frcnn_train["launches"]["roi_align_bwd"],
                              **{p: dm[p]["launches"]["roi_align_bwd"] for p in trains},
-                             "frcnn_cli800": frcnn_cli["launches"]["roi_align_bwd"]},
+                             "frcnn_cli800": frcnn_cli["launches"]["roi_align_bwd"],
+                             "ddp": ddp["roi_align_bwd"]},
         "max_abs_err": max(bwd_err, *(dm[p]["max_abs_err"] for p in trains)),
         **bwd_timing["torch.float32"],  # Faster R-CNN trains in f32
         "bf16": bwd_timing["torch.bfloat16"],
@@ -2815,4 +3160,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of the ddp phase, started by it
+        sys.exit(ddp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -13,7 +13,8 @@
   column, floats as ``repr``, NaN as an empty field), with the standard
   ``csv`` module: a file written by either package loads in the other;
 * ``minibatch_idf`` (log((B+1)/(df_batch+1)) + 1 over a batch's per-image
-  class presence) and ``eq_rare_mask``.
+  class presence, the global batch's above one process) and
+  ``eq_rare_mask``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from scipy.special import ndtri
 
 from object_detectors_tpu_torch.ops.losses import one_hot
+from object_detectors_tpu_torch.parallel import mesh
 
 VARIANTS = ("smooth", "raw", "prob", "normit", "gombit", "base2", "base10")
 
@@ -109,11 +111,15 @@ def load_idf_csv(path: str) -> dict:
 def minibatch_idf(gt_labels: torch.Tensor, gt_valid: torch.Tensor,
                   num_classes: int) -> torch.Tensor:
     """Padded labels [B, M] and validity [B, M] -> [num_classes] f32 weights
-    log((B + 1) / (present + 1)) + 1, ``present`` the images holding a class."""
+    log((B + 1) / (present + 1)) + 1, ``present`` the images holding a class;
+    above one process B and ``present`` count the global batch."""
     b = gt_labels.shape[0]
     onehot = one_hot(gt_labels, num_classes) * gt_valid[..., None].float()
     present = (onehot.sum(1) > 0).float()  # [B, C]
     df = present.sum(0)
+    if mesh.process_count() > 1:
+        counts = mesh.global_sum(torch.cat([df, df.new_tensor([b])]))
+        df, b = counts[:-1], counts[-1]
     return torch.log((b + 1) / (df + 1)) + 1.0
 
 

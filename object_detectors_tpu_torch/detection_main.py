@@ -347,9 +347,11 @@ class ModelAdapter:
         return SSD.ssd_loss(cls.float(), reg.float(), self._ssd_anchors(level_sizes), *gt,
                             self.cfg, tfidf=self.tfidf)
 
+    # an evaluation runs the module inside DDP: each rank on its own images,
+    # without a collective
     @torch.no_grad()
     def _eval(self, images: torch.Tensor):
-        return self.model.eval()(images, tfidf=self.tfidf_vec)
+        return ckpt_lib.unwrapped(self.model).eval()(images, tfidf=self.tfidf_vec)
 
     @torch.no_grad()
     def detect(self, images: torch.Tensor):
@@ -358,7 +360,7 @@ class ModelAdapter:
         s = self.image_size
         if self.name in TWO_STAGE:
             return self._eval(images)[:4]
-        model = self.model.eval()
+        model = ckpt_lib.unwrapped(self.model).eval()
         cls, reg, level_sizes = model(images)
         if self.name == "retinanet_resnet50_fpn":
             b, sc, lab, v = RN.retinanet_postprocess(cls, reg, self._anchors_for(),
@@ -664,11 +666,13 @@ def main(argv=None):
             gen = trainer.draw_generator(args.seed, epoch * 100003 + i, device)
             state, total, losses = trainer.detection_train_step(state, adapter, t,
                                                                 generator=gen)
-            total = float(mesh.all_reduce_mean(total))
+            # each rank holds its share of the global losses: their mean is JAX's
+            reduced = mesh.all_reduce_mean(torch.stack([total, *losses.values()])).tolist()
+            total = reduced[0]
             if not np.isfinite(total):
                 log.error("Loss is %s, stopping (engine.py:40-43)", total)
                 return None
-            logger.update(loss=total, **{k: float(v) for k, v in losses.items()})
+            logger.update(loss=total, **dict(zip(losses, reduced[1:])))
         mAP, _, extra = run_eval()
         _save(ckpt, f"model_{epoch}", state, epoch, mAP, hflip_rng)
         _save(ckpt, "last", state, epoch, mAP, hflip_rng)

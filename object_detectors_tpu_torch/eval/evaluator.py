@@ -7,7 +7,9 @@
   or numpy arrays and copies each argument to the host once a batch;
 * ``synchronize_between_processes`` merges the result lists of all ranks
   with a pad-gather (lengths first, then the padded JSON bytes) through
-  ``torch.distributed.all_gather``; a no-op in one process;
+  ``torch.distributed.all_gather``, each image's results from the first
+  rank that has any (a sharded set that does not split evenly repeats its
+  first images on the last ranks); a no-op in one process;
 * ``summarize`` runs the numpy COCOeval and returns the 12 stats;
   ``save_detections`` dumps the standard JSON.
 """
@@ -138,10 +140,13 @@ class DetectionEvaluator:
         padded = np.zeros(maxn, np.uint8)
         padded[: arr.size] = arr
         gathered = _allgather(padded)
-        merged = []
+        merged, seen = [], set()
         for i, ln in enumerate(np.asarray(all_n).reshape(-1).tolist()):
-            chunk = bytes(np.asarray(gathered)[i][:ln]).decode()
-            merged.extend(json.loads(chunk))
+            chunk = json.loads(bytes(np.asarray(gathered)[i][:ln]).decode())
+            # data/coco.py:shard_indices pads the last ranks with the first
+            # images: score each image once, as the earliest rank saw it
+            merged.extend(r for r in chunk if r["image_id"] not in seen)
+            seen.update(r["image_id"] for r in chunk)
         self.results = merged
 
     def summarize(self, iou_type: str = "bbox"):

@@ -2,9 +2,10 @@
 JAX package's ``main.py``, the reference's ``yolo/main.py``).
 
 One process a card; above one process (``torchrun``) the model is wrapped
-in DDP with synchronized batch norms and the logged metrics are averaged
-over the processes (``parallel/mesh.py``); logging, checkpoints,
-schedulers and the evaluation merge run on the host.
+in DDP, its batch norms and loss normalizers count the global batch, and
+the logged metrics are averaged over the processes (``parallel/mesh.py``);
+rank 0 writes the logs and checkpoints; schedulers and the evaluation
+merge run on the host.
 
 Subcommands:
 * ``train``    — epoch loop with mAP-or-val_loss model selection,
@@ -264,7 +265,7 @@ def valid_one_epoch(state, cfg, loss_cfg, dataset):
         priors, gw = YC.make_priors(loss_cfg, tuple(o.shape[1] for o in outs), dev)
         loss, _, _ = YC.yolo_loss(raw, priors, gw, t["gt_boxes"], t["gt_labels"],
                                   t["gt_valid"], loss_cfg)
-        total += float(loss)
+        total += float(mesh.all_reduce_mean(loss))  # the global batch's loss
         n += 1
     return total / max(n, 1)
 

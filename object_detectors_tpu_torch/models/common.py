@@ -14,6 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_detectors_tpu_torch.parallel import mesh
+from object_detectors_tpu_torch.parallel.batch_norm import global_batch_norm
+
 
 @contextlib.contextmanager
 def tf32_off():
@@ -37,7 +40,9 @@ class ConvBN(nn.Module):
     normalizes with the batch mean and the biased batch variance, both in
     float32 whatever the activation dtype, and moves the running statistics
     by 0.1 toward them, the running variance toward the biased variance
-    (PyTorch's own update takes the unbiased one, n / (n - 1) larger)."""
+    (PyTorch's own update takes the unbiased one, n / (n - 1) larger).
+    Above one process the statistics are those of the global batch
+    (``parallel/batch_norm.py``), as under JAX's mesh."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  strides: int = 1):
@@ -54,8 +59,8 @@ class ConvBN(nn.Module):
             x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                              False, 0.0, bn.eps)
             return F.leaky_relu(x, 0.1)
-        if isinstance(bn, nn.SyncBatchNorm):  # data parallel (parallel/mesh.py)
-            return F.leaky_relu(bn(x), 0.1)
+        if mesh.process_count() > 1:  # the statistics of the global batch
+            return F.leaky_relu(global_batch_norm(x, bn), 0.1)
         # the batch statistics come out of the normalization itself (f32 mean
         # and 1 / sqrt(var + eps) of the biased variance); the running
         # statistics are left to the update below

@@ -40,6 +40,7 @@ from object_detectors_tpu_torch.models.roi_heads import RoIHeadsConfig
 from object_detectors_tpu_torch.models.rpn import RPNConfig
 from object_detectors_tpu_torch.ops.nms import gather_rows
 from object_detectors_tpu_torch.ops.roi_align import pool_multiscale
+from object_detectors_tpu_torch.parallel import mesh
 
 EXACT_CHUNK = 32  # detections a chunk of heatmaps_to_keypoints_exact: [32, K, 512, 512] f32
 
@@ -102,7 +103,9 @@ def keypointrcnn_loss(kp_logits: torch.Tensor, proposals: torch.Tensor,
     valid = valid & pos_mask[..., None]
     logp = torch.log_softmax(kp_logits.reshape(b, s, hm * hm, k).transpose(2, 3), -1)
     nll = -logp.gather(-1, cell[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1).to(nll.dtype)
+    # the global batch's count; each rank returns its share (parallel/mesh.py)
+    count = mesh.global_sum(valid.sum()).clamp(min=1).to(nll.dtype)
+    return mesh.rank_share((nll * valid).sum() / count)
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,6 +31,7 @@ from object_detectors_tpu_torch.models.faster_rcnn import FasterRCNN, init_frcnn
 from object_detectors_tpu_torch.models.roi_heads import RoIHeadsConfig
 from object_detectors_tpu_torch.models.rpn import RPNConfig
 from object_detectors_tpu_torch.ops.roi_align import _pool_flat, pool_multiscale
+from object_detectors_tpu_torch.parallel import mesh
 
 
 class MaskRCNNHeads(nn.Module):
@@ -85,8 +86,9 @@ def maskrcnn_loss(mask_logits: torch.Tensor, proposals: torch.Tensor, gt_masks: 
     at_label = mask_logits.gather(-1, lab[:, :, None, None, None].expand(b, s, m, m, 1))[..., 0]
     el = at_label.clamp(min=0) - at_label * targets + torch.log1p(torch.exp(-at_label.abs()))
     pos = pos_mask.to(mask_logits.dtype)
-    count = (pos.sum(1) * (m * m)).sum()
-    return (el * pos[:, :, None, None]).sum() / count.clamp(min=1.0)
+    # the global batch's count; each rank returns its share (parallel/mesh.py)
+    count = mesh.global_sum((pos.sum(1) * (m * m)).sum())
+    return mesh.rank_share((el * pos[:, :, None, None]).sum() / count.clamp(min=1.0))
 
 
 def maskrcnn_inference(mask_logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

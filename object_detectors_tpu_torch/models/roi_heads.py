@@ -38,6 +38,7 @@ from object_detectors_tpu_torch.ops.boxes import (
 from object_detectors_tpu_torch.ops.nms import batched_nms, gather_rows
 from object_detectors_tpu_torch.ops.sampler import balanced_sample, sampler_uniforms
 from object_detectors_tpu_torch.ops.selection import radix_topk
+from object_detectors_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +156,8 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
     [B, S, 4C], labels [B, S] (0 background), targets [B, S, 4], sampled
     [B, S] -> dict(loss_classifier, loss_box_reg), over the number sampled."""
     bsz, s, c = class_logits.shape
-    num_sampled = sampled_mask.sum().clamp(min=1).to(class_logits.dtype)
+    # the global batch's count; each rank returns its share (parallel/mesh.py)
+    num_sampled = mesh.global_sum(sampled_mask.sum()).clamp(min=1).to(class_logits.dtype)
     smask = sampled_mask.to(class_logits.dtype)
     if cfg.loss_type == "ce":
         weight = (class_weights if class_weights is not None
@@ -178,7 +180,7 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
                 el = alpha_t * el * (1 - p_t) ** 2
         else:
             raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
-        cls_loss = (el * smask[..., None]).sum() / num_sampled
+        cls_loss = mesh.rank_share((el * smask[..., None]).sum() / num_sampled)
 
     # box loss over the positives, at the GT class's deltas
     lab_c = labels.long().clamp(min=0)
@@ -186,7 +188,8 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
         2, lab_c[..., None, None].expand(bsz, s, 1, 4))[:, :, 0]
     pos = (labels > 0).to(class_logits.dtype) * smask
     box_l = L.smooth_l1_loss(reg_at_label, reg_targets).sum(-1)
-    return {"loss_classifier": cls_loss, "loss_box_reg": (box_l * pos).sum() / num_sampled}
+    return {"loss_classifier": cls_loss,
+            "loss_box_reg": mesh.rank_share((box_l * pos).sum() / num_sampled)}
 
 
 def postprocess_detections(class_logits: torch.Tensor, box_regression: torch.Tensor,

@@ -34,6 +34,7 @@ from object_detectors_tpu_torch.ops.boxes import (
 from object_detectors_tpu_torch.ops.nms import fixedpoint_keep, gather_rows
 from object_detectors_tpu_torch.ops.sampler import balanced_sample
 from object_detectors_tpu_torch.ops.selection import radix_topk, radix_topk_multi
+from object_detectors_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,9 +162,11 @@ def rpn_loss(objectness: torch.Tensor, pred_deltas: torch.Tensor, anchors: torch
     pos_mask, neg_mask = balanced_sample(labels.int(), cfg.batch_size_per_image,
                                          cfg.positive_fraction, uniforms, generator)
     sampled = pos_mask | neg_mask
-    num_sampled = sampled.sum().clamp(min=1).to(objectness.dtype)
+    # the global batch's count; each rank returns its share (parallel/mesh.py)
+    num_sampled = mesh.global_sum(sampled.sum()).clamp(min=1).to(objectness.dtype)
     box_l = L.smooth_l1_loss(pred_deltas, reg_targets, beta=1.0 / 9).sum(-1)
     loss_box = (box_l * pos_mask).sum() / num_sampled
     obj_l = L.sigmoid_binary_cross_entropy(objectness, labels)
     loss_obj = (obj_l * sampled).sum() / num_sampled
-    return {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_box}
+    return {"loss_objectness": mesh.rank_share(loss_obj),
+            "loss_rpn_box_reg": mesh.rank_share(loss_box)}

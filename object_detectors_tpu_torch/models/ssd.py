@@ -35,6 +35,7 @@ from object_detectors_tpu_torch.ops.boxes import (
 )
 from object_detectors_tpu_torch.ops.matcher import ssd_match
 from object_detectors_tpu_torch.ops.nms import batched_nms, gather_rows, topk_lowest_index
+from object_detectors_tpu_torch.parallel import mesh
 
 ANCHORS_PER_LOCATION = (4, 6, 6, 6, 4, 4)
 
@@ -193,7 +194,8 @@ def ssd_loss(cls_logits: torch.Tensor, bbox_reg: torch.Tensor, anchors: torch.Te
             tfidf = tfidf / torch.linalg.vector_norm(tfidf, ord=cfg.tfidf_norm)
     matched = ssd_match(pairwise_iou(gt_boxes, anchors), gt_valid, cfg.iou_thresh)  # [B, A]
     fg = matched >= 0
-    num_fg = fg.sum().clamp(min=1).to(cls_logits.dtype)
+    # the global batch's count; each rank returns its share (parallel/mesh.py)
+    num_fg = mesh.global_sum(fg.sum()).clamp(min=1).to(cls_logits.dtype)
     midx = matched.clamp(min=0)
     reg_t = encode_boxes(gather_rows(gt_boxes, midx), anchors[None], cfg.box_weights)
     reg_t = torch.where(fg[..., None], torch.nan_to_num(reg_t), 0.0)
@@ -211,7 +213,8 @@ def ssd_loss(cls_logits: torch.Tensor, bbox_reg: torch.Tensor, anchors: torch.Te
     num_neg = cfg.neg_to_pos_ratio * fg.sum(1, keepdim=True)
     bg = rank < num_neg
     cls_loss = ((ce * fg).sum() + torch.where(bg & ~fg, ce, 0.0).sum()) / num_fg
-    return {"bbox_regression": bbox_loss, "classification": cls_loss}
+    return {"bbox_regression": mesh.rank_share(bbox_loss),
+            "classification": mesh.rank_share(cls_loss)}
 
 
 def ssd_postprocess(cls_logits: torch.Tensor, bbox_reg: torch.Tensor, anchors: torch.Tensor,

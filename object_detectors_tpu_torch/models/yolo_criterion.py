@@ -15,7 +15,9 @@ of the decoded boxes, focal-BCE objectness (matched priors against 1,
 no-object priors against 0), and the CE / BCE / EQ class loss with the
 tf-idf logit scale; the sum is normalized by the number of GTs. GT is
 padded ``[B, M, ...]`` with a validity mask and every image is handled at
-once.
+once. Above one process the counts (GTs, no-object priors, the minibatch
+idf's) are those of the global batch and each rank returns its share of
+the global loss and stats (``parallel/mesh.py:rank_share``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from object_detectors_tpu_torch.data.idf import minibatch_idf
 from object_detectors_tpu_torch.ops import boxes as box_ops
 from object_detectors_tpu_torch.ops import losses as L
 from object_detectors_tpu_torch.ops.nms import gather_rows
+from object_detectors_tpu_torch.parallel import mesh
 
 # class_loss selector codes
 CLASS_LOSS_BCE, CLASS_LOSS_CE, CLASS_LOSS_EQ = 0, 1, 2
@@ -153,12 +156,16 @@ def yolo_loss(raw_pred: torch.Tensor, priors: torch.Tensor, grid_w: torch.Tensor
 
     Returns (loss, sub_losses [6]: xy, wh, iou, pos_conf, neg_conf, cls;
     stats [5], without gradient: avg IoU, pos conf, no-obj conf, prob at the
-    GT class, mean prob at the other classes)."""
+    GT class, mean prob at the other classes). Above one process the GTs
+    and the no-object priors are counted over the global batch, and the
+    loss, sub-losses and stats are this rank's share of the global ones."""
     b, m = gt_boxes.shape[:2]
-    num_gt = gt_valid.sum().clamp(min=1).to(raw_pred.dtype)
     vmask = gt_valid.to(raw_pred.dtype)
 
     best, tgt, noobj = _per_image_targets(gt_boxes, gt_valid, priors, grid_w, cfg)
+    # the counts of the global batch, in one all-reduce above one process
+    num_gt, nm_total = mesh.global_sum(torch.stack([gt_valid.sum(), noobj.sum()])).clamp(
+        min=1).to(raw_pred.dtype).unbind()
     final = gather_rows(raw_pred, best)  # [B, M, 5+C]
     matched_prior = priors[best]
     matched_gw = grid_w[best]
@@ -208,6 +215,7 @@ def yolo_loss(raw_pred: torch.Tensor, priors: torch.Tensor, grid_w: torch.Tensor
     if cfg.reduction == "sum":
         loss = loss / num_gt
         sub = sub / num_gt
+    loss, sub = mesh.rank_share(loss), mesh.rank_share(sub)
 
     with torch.no_grad():
         pred_conf = torch.sigmoid(final[..., 4])
@@ -215,7 +223,6 @@ def yolo_loss(raw_pred: torch.Tensor, priors: torch.Tensor, grid_w: torch.Tensor
             pred_cls = torch.softmax(final[..., 5:], -1)
         else:
             pred_cls = torch.sigmoid(final[..., 5:])
-        nm_total = nmask.sum().clamp(min=1.0)
         neg_count = (num_gt * (cfg.num_classes - 1)).clamp(min=1.0)
         stats = torch.stack([
             (iou * vmask).sum() / num_gt,
@@ -224,4 +231,4 @@ def yolo_loss(raw_pred: torch.Tensor, priors: torch.Tensor, grid_w: torch.Tensor
             ((pred_cls * labels_oh).sum(-1) * vmask).sum() / num_gt,
             (pred_cls * (1.0 - labels_oh) * vmask[..., None]).sum() / neg_count,
         ])
-    return loss, sub, stats
+    return loss, sub, mesh.rank_share(stats)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from object_detectors_tpu_torch.parallel import mesh
+
 
 def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "mean":
@@ -50,13 +52,14 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def weighted_ce_mean(logits, labels, weight, sample_mask=None):
     """CrossEntropyLoss(weight=w, reduction='mean'): sum(w[y] nll) / sum(w[y])
-    over the unmasked samples."""
+    over the unmasked samples; above one process the rank's share of that
+    mean over the global batch (``parallel/mesh.py``)."""
     nll = softmax_cross_entropy(logits, labels, weight)
     w = weight[labels.long()] if weight is not None else torch.ones_like(nll)
     if sample_mask is not None:
         nll = nll * sample_mask
         w = w * sample_mask
-    return nll.sum() / w.sum().clamp(min=1e-12)
+    return mesh.rank_share(nll.sum() / mesh.global_sum(w.sum()).clamp(min=1e-12))
 
 
 def focal_modulation(logits, labels, gamma: float, alpha: float):

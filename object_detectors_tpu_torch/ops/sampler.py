@@ -7,11 +7,16 @@ Each candidate of a polarity gets a uniform score and the ``k`` highest are
 kept, so the shapes stay [..., N] masks. The uniforms come from an explicit
 ``torch.Generator``, or are given: the tests hand in the draws of the JAX
 sampler (two [N] uniforms an image, for its positives and its negatives).
+Above one process every rank draws the global batch's uniforms from the
+same generator and keeps the rows of its own images, so that the ranks
+together sample what one process sampling the global batch would.
 """
 
 from __future__ import annotations
 
 import torch
+
+from object_detectors_tpu_torch.parallel import mesh
 
 
 def _topk_mask_by_score(score: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -26,8 +31,14 @@ def _topk_mask_by_score(score: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def sampler_uniforms(shape, device, generator: torch.Generator | None = None):
     """The (positive, negative) uniforms of ``balanced_sample`` for labels of
-    ``shape``, drawn from ``generator``."""
-    return tuple(torch.rand(shape, generator=generator, device=device) for _ in range(2))
+    ``shape`` [B, N], drawn from ``generator``. Above one process each draw
+    is the global batch's [B * world, N], of which the rank keeps rows
+    rank, rank + world, ...: the places of its images in the global batch,
+    which ``data/coco.py:shard_indices`` deals out round-robin."""
+    world, rank = mesh.process_count(), mesh.process_index()
+    full = (shape[0] * world,) + tuple(shape[1:])
+    return tuple(torch.rand(full, generator=generator, device=device)[rank::world]
+                 for _ in range(2))
 
 
 def balanced_sample(labels: torch.Tensor, batch_size_per_image: int,

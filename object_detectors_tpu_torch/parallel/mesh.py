@@ -10,10 +10,17 @@ the data (``process_index`` / ``process_count`` feed the batch iterators
 as ``jax.process_index`` / ``jax.process_count`` do in JAX). The global
 batch is the configured batch size, split evenly over the processes.
 
-Batch norm: JAX reduces batch statistics over the global batch, so the
-YOLO's batch norms become ``nn.SyncBatchNorm`` above one process (which
-moves the running variance toward the unbiased variance, where Flax and the
-port's one-process ``ConvBN`` take the biased one).
+Batch norm: JAX reduces batch statistics over the global batch. Above one
+process ``models/common.py:ConvBN`` takes the data-parallel batch norm of
+``parallel/batch_norm.py``, which all-reduces its sums forward and
+backward; nothing else trains on batch statistics.
+
+Loss normalizers: JAX divides a sum over the global batch by a count over
+it. Each rank divides its own sum by the count over all processes
+(``global_sum``) and scales the quotient by the number of processes
+(``rank_share``), so that DDP's mean of the ranks' gradients, and
+``all_reduce_mean`` of their losses, are JAX's. In one process both are the
+identity.
 """
 
 from __future__ import annotations
@@ -75,15 +82,36 @@ def per_process_batch(batch_size: int) -> int:
 
 
 def data_parallel(model: nn.Module) -> nn.Module:
-    """``model`` for data-parallel training: above one process its batch
-    norms become ``SyncBatchNorm`` and it is wrapped in
-    ``DistributedDataParallel``; in one process it is returned unchanged."""
+    """``model`` for data-parallel training: above one process it is wrapped
+    in ``DistributedDataParallel``, which starts every rank from rank 0's
+    parameters and buffers; in one process it is returned unchanged. The
+    buffers are not broadcast again at each forward: the batch norms'
+    running statistics move by the global statistics on every rank alike,
+    and an evaluation forward then issues no collective."""
     if process_count() <= 1:
         return model
-    model = nn.SyncBatchNorm.convert_sync_batchnorm(model)
     device = next(model.parameters()).device
     ids = [device.index] if device.type == "cuda" else None
-    return nn.parallel.DistributedDataParallel(model, device_ids=ids)
+    return nn.parallel.DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the detached ``x`` over the processes (a SUM all-reduce of
+    a copy); ``x`` itself in one process."""
+    if process_count() <= 1:
+        return x
+    x = x.detach().clone()
+    torch.distributed.all_reduce(x)
+    return x
+
+
+def rank_share(x: torch.Tensor) -> torch.Tensor:
+    """A rank's sum over a global count, times the number of processes:
+    DDP averages the ranks' gradients, and the mean of the ranks' shares is
+    then the global sum over the global count, as JAX computes it; ``x``
+    itself in one process."""
+    world = process_count()
+    return x if world <= 1 else x * world
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:

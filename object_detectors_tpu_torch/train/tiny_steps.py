@@ -49,16 +49,25 @@ NULL_UPDATE_SHARE = 3e-6
 
 
 def update_gap(models: dict, before: dict) -> dict:
-    """The GPU's parameter updates against the CPU's. ``worst_share``: the
-    largest difference in a tensor over the larger of that tensor's largest
-    CPU update and NULL_UPDATE_SHARE of the largest CPU update of any
-    tensor, the worst tensor's (named by ``at``). ``norm_share``: the norm
-    of all differences over the norm of all updates."""
+    """The GPU's parameter updates against the CPU's (``tensor_gap``)."""
     gpu = dict(models["cuda"].named_parameters())
+    return tensor_gap(
+        {name: (p.detach() - before[name]).double()
+         for name, p in models["cpu"].named_parameters()},
+        {name: (p.detach().cpu() - before[name]).double() for name, p in gpu.items()})
+
+
+def tensor_gap(ref: dict, got: dict) -> dict:
+    """Tensors ``got`` against ``ref`` (by name; updates or gradients).
+    ``worst_share``: the largest difference in a tensor over the larger of
+    that tensor's largest reference value and NULL_UPDATE_SHARE of the
+    largest reference value of any tensor, the worst tensor's (named by
+    ``at``). ``norm_share``: the norm of all differences over the norm of
+    the reference."""
     diffs, num, den = {}, 0.0, 0.0
-    for name, p in models["cpu"].named_parameters():
-        upd = (p.detach() - before[name]).double()
-        diff = (gpu[name].detach().cpu() - before[name]).double() - upd
+    for name, upd in ref.items():
+        upd = upd.double()
+        diff = got[name].double() - upd
         num += float((diff ** 2).sum())
         den += float((upd ** 2).sum())
         diffs[name] = diff.abs().max().item(), upd.abs().max().item()
